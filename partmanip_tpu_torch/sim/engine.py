@@ -1,0 +1,313 @@
+"""Scene-level physics step (PyTorch).
+
+Counterpart of ``partmanip_tpu/sim/engine.py`` for scenes made of the
+articulated robot, the ground and an optional free body (the cube), with SDF
+penalty contacts.  :func:`_inner_step` is the plain PyTorch version of the
+fused CUDA kernel in :mod:`fused`: it runs when the state lies on the CPU and
+is what the kernel is held against on the GPU.  State on a CUDA device always
+goes through the kernel (:func:`physics_step`).
+
+Per-contact quantities are aggregated **per collision sphere** before they
+touch a Jacobian; the contact stiffness/damping enters the implicit solve as
+per-sphere 3×3 normal operators N = Σ_c coef·n nᵀ with A += Jᵀ N J —
+algebraically exact.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..ops import rotations as rot
+from . import contact, dynamics, kinematics
+from .types import (BoxGeoms, FreeBodySpec, FreeBodyState, GridGeoms,
+                    HostCache, SimParams, SphereGeoms, TreeSpec, TreeState)
+
+# free-body masses as python floats (env 0), read to the host once
+_MASS0 = HostCache()
+
+
+def _mass0(fb: FreeBodySpec) -> float:
+    return _MASS0.get(fb.mass, lambda: float(fb.mass.reshape(-1)[0]))
+
+
+class SceneSpec(NamedTuple):
+    robot: TreeSpec
+    spheres: SphereGeoms
+    params: SimParams
+    obj_tree: Optional[TreeSpec] = None
+    obj_boxes: Optional[BoxGeoms] = None
+    free_body: Optional[FreeBodySpec] = None
+    obj_grids: Optional[GridGeoms] = None
+    grid_stack: Optional[object] = None
+
+
+class SceneState(NamedTuple):
+    robot: TreeState
+    obj: Optional[TreeState] = None
+    body: Optional[FreeBodyState] = None
+    anchors: Optional[contact.AnchorState] = None  # stick-friction state
+
+
+def check_supported(scene: SceneSpec) -> None:
+    """Raise with the reason when the scene has a part the port does not
+    simulate yet (the articulated-object and mesh-SDF branches of the JAX
+    engine, and the velocity-product terms)."""
+    if scene.params.coriolis:
+        raise NotImplementedError(
+            "sim.coriolis=True is not ported yet (ROADMAP Queue A: tooling "
+            "and generic articulations)")
+    if scene.obj_tree is not None or scene.obj_boxes is not None:
+        raise NotImplementedError(
+            "articulated-object scenes (obj_tree / obj_boxes) are not ported "
+            "yet (ROADMAP Queue A: assets + open_drawer, kernel B1b)")
+    if scene.obj_grids is not None or scene.grid_stack is not None:
+        raise NotImplementedError(
+            "mesh-SDF collision geoms (obj_grids) are not ported yet "
+            "(ROADMAP Queue A: mesh collision, kernel B1c)")
+
+
+def _nnT(normal, coef):
+    """coef·n nᵀ per sphere → [E, S, 3, 3]."""
+    return coef[..., None, None] * normal[..., :, None] * normal[..., None, :]
+
+
+def _inner_step(scene: SceneSpec, state: SceneState, pos_targets, h,
+                gravity, coriolis=True) -> SceneState:
+    E = state.robot.qpos.shape[0]
+    dev = state.robot.qpos.device
+    p = scene.params
+    rspec = scene.robot
+    fk_r = kinematics.forward_kinematics(rspec, state.robot)
+    M_r = dynamics.mass_matrix(rspec, fk_r, E)
+
+    # robot collision spheres: world positions, per-sphere Jacobians, vels
+    S = scene.spheres.link_idx.shape[0]
+    centers = contact.sphere_positions(rspec, fk_r, scene.spheres, E)
+    sphere_link = scene.spheres.link_idx[None].expand(E, S)
+    Jp_s = kinematics.point_jacobian(rspec, fk_r, sphere_link, centers)
+    v_s = torch.einsum("esad,ed->esa", Jp_s, state.robot.qvel)
+    radii = scene.spheres.radius
+    mu_s = scene.spheres.friction
+
+    def imp_coef(touching, m_eff):
+        cd = 2.0 * p.contact_damping_ratio * math.sqrt(p.contact_kn * m_eff)
+        return touching * (h * cd + h * h * p.contact_kn)
+
+    # Per-sphere best-partner bookkeeping for the stick-slip anchors:
+    # partner ids: 0 ground, 1 cube.
+    best_depth = torch.full((E, S), 1e9, device=dev)
+    best = {
+        "id": torch.full((E, S), -1, dtype=torch.int32, device=dev),
+        "normal": torch.zeros((E, S, 3), device=dev),
+        "fn": torch.zeros((E, S), device=dev),
+        "mu": torch.zeros((E, S), device=dev),
+        "touch": torch.zeros((E, S), device=dev),
+        "pvel": torch.zeros((E, S, 3), device=dev),
+    }
+
+    def consider(depth, pid, normal, fn, mu, touch, pvel):
+        nonlocal best_depth
+        better = (depth < best_depth) & (touch > 0)
+        best_depth = torch.where(better, depth, best_depth)
+        best["id"] = torch.where(better, pid, best["id"])
+        best["normal"] = torch.where(better[..., None], normal, best["normal"])
+        best["fn"] = torch.where(better, fn, best["fn"])
+        best["mu"] = torch.where(better, mu, best["mu"])
+        best["touch"] = torch.maximum(best["touch"], touch * better)
+        best["pvel"] = torch.where(better[..., None], pvel, best["pvel"])
+
+    # 1) robot vs ground
+    cs_g = contact.spheres_vs_ground(centers, radii, mu_s)
+    f_g, fn_g, t_g = contact.penalty_forces(cs_g, v_s, p, 0.5)
+    F_sphere = f_g
+    N_sphere = _nnT(cs_g.normal, imp_coef(t_g, 0.5))
+    consider(cs_g.depth, torch.zeros((E, S), dtype=torch.int32, device=dev),
+             cs_g.normal, fn_g, cs_g.friction, t_g,
+             torch.zeros((E, S, 3), device=dev))
+
+    # 2) robot vs free body (cube)
+    cube_wrench = None
+    if scene.free_body is not None:
+        fb = scene.free_body
+        half = fb.half_extents.expand(E, 3)[:, None, :]
+        cs_b, _ = contact.spheres_vs_boxes(
+            centers, radii, mu_s,
+            state.body.pos[:, None, :], state.body.quat[:, None, :],
+            half, centers.new_ones((E, 1)), fb.friction.expand(E)[:, None],
+            lambda pts: contact.free_body_point_velocity(
+                state.body, pts.reshape(E, -1, 3)).reshape(pts.shape),
+        )
+        m_cube = _mass0(fb)
+        f_b, fn_b, t_b = contact.penalty_forces(cs_b, v_s, p, m_cube,
+                                                recede_damp=1.0)
+        F_sphere = F_sphere + f_b
+        N_sphere = N_sphere + _nnT(cs_b.normal, imp_coef(t_b, m_cube))
+        # reaction wrench on the cube about its COM (normal part)
+        r = cs_b.point - state.body.pos[:, None, :]
+        cube_wrench = (-torch.sum(f_b, dim=1),
+                       -torch.sum(rot._cross(r, f_b), dim=1))
+        consider(cs_b.depth, torch.ones((E, S), dtype=torch.int32, device=dev),
+                 cs_b.normal, fn_b, cs_b.friction, t_b,
+                 contact.free_body_point_velocity(state.body, centers))
+
+    # ---- stick-slip tangential friction via anchors ----
+    anchors = state.anchors
+    if anchors is None:
+        anchors = contact.init_anchors(E, S, dev)
+
+    def to_world(local, pid):
+        out = local  # ground: identity
+        if scene.free_body is not None:
+            cube_w = (rot.quat_rotate(state.body.quat[:, None], local)
+                      + state.body.pos[:, None])
+            out = torch.where((pid == 1)[..., None], cube_w, out)
+        return out
+
+    def to_local(world, pid):
+        out = world
+        if scene.free_body is not None:
+            cube_l = rot.quat_rotate_inverse(
+                state.body.quat[:, None], world - state.body.pos[:, None])
+            out = torch.where((pid == 1)[..., None], cube_l, out)
+        return out
+
+    sticky = scene.spheres.sticky[None].expand(E, S)
+    ft, new_anchors, _ = contact.anchor_friction(
+        centers, v_s, best["normal"], best["fn"], best["mu"],
+        best["touch"] * sticky, best["id"], anchors, to_local, to_world,
+        best["pvel"], p, 0.1)
+    ft = ft * sticky[..., None]
+    F_sphere = F_sphere + ft
+    # implicit tangential operator (I − n nᵀ) for anchored spheres
+    cdt = 2.0 * contact.ANCHOR_ZETA * math.sqrt(contact.ANCHOR_KS * 0.1)
+    eye = torch.eye(3, device=dev).expand(E, S, 3, 3)
+    P_t = eye - best["normal"][..., :, None] * best["normal"][..., None, :]
+    N_sphere = N_sphere + ((h * cdt + h * h * contact.ANCHOR_KS)
+                           * best["touch"][..., None, None] * P_t)
+
+    # friction reactions to partners
+    if scene.free_body is not None:
+        is_cube = (best["id"] == 1).to(ft.dtype)[..., None]
+        f_c, t_c = cube_wrench
+        ftc = ft * is_cube
+        # Velocity-matching cap on the cube-side reaction (the sphere side
+        # keeps full stiction): friction may bring the free body to the
+        # finger's tangential speed plus a small holding margin in one inner
+        # step — enough to hold a grasped cube against gravity but never to
+        # fling it.
+        vrel = v_s - best["pvel"]
+        vt_c = vrel - torch.sum(
+            vrel * best["normal"], -1, keepdim=True) * best["normal"]
+        m_cube_e = scene.free_body.mass.expand(E)[:, None]
+        n_touch = torch.clamp(torch.sum(
+            is_cube[..., 0] * best["touch"], -1, keepdim=True), min=1.0)
+        cap = (m_cube_e / n_touch) * (
+            torch.linalg.norm(vt_c, dim=-1)
+            + contact.FREE_BODY_HOLD_VEL) / p.h
+        mag = torch.linalg.norm(ftc, dim=-1)
+        ftc = ftc * (torch.minimum(mag, cap)
+                     / torch.clamp(mag, min=1e-9))[..., None]
+        f_c = f_c - torch.sum(ftc, dim=1)
+        t_c = t_c - torch.sum(
+            rot._cross(centers - state.body.pos[:, None], ftc), dim=1)
+        cube_wrench = (f_c, t_c)
+
+    implicit = dynamics.ImplicitBlocks(Jp=Jp_s, N=N_sphere)
+    tau_r = torch.einsum("esad,esa->ed", Jp_s, F_sphere)
+
+    robot_new = dynamics.step_tree(
+        rspec, state.robot, fk_r, M_r, pos_targets, tau_r, h, gravity,
+        implicit=implicit, coriolis=coriolis,
+    )
+
+    # --- object-side integration ---
+    body_new = state.body
+    if scene.free_body is not None:
+        f_cube, torque_cube = cube_wrench
+        # cube corners vs ground
+        corners_l = contact.box_corners(scene.free_body.half_extents, E)
+        corners_w = state.body.pos[:, None, :] + rot.quat_rotate(
+            state.body.quat[:, None, :], corners_l)
+        v_c = contact.free_body_point_velocity(state.body, corners_w)
+        cs_c = contact.ContactSet(
+            point=corners_w, normal=contact._unit_z(corners_w),
+            depth=corners_w[..., 2],
+            active=corners_w.new_ones((E, 8)),
+            sphere_idx=torch.zeros((E, 8), dtype=torch.int64, device=dev),
+            friction=(0.5 * (scene.free_body.friction + 0.1)
+                      ).expand(E)[:, None].expand(E, 8),
+            v_other=torch.zeros_like(corners_w),
+        )
+        force_c, _, _ = contact.penalty_forces(
+            cs_c, v_c, p, _mass0(scene.free_body) / 4.0, recede_damp=1.0)
+        f_cube = f_cube + torch.sum(force_c, dim=1)
+        torque_cube = torque_cube + torch.sum(
+            rot._cross(corners_w - state.body.pos[:, None, :], force_c), dim=1)
+        # Net per-body contact Δv cap (a per-BODY budget of
+        # max_depenetration_velocity): purely per-contact budgets still ring
+        # when opposing stiff contacts squeeze the body.
+        m_body = scene.free_body.mass.expand(E)[:, None]
+        dv = torch.linalg.norm(f_cube, dim=-1, keepdim=True) * h / m_body
+        dv_scale = torch.clamp(
+            p.max_depenetration_velocity / torch.clamp(dv, min=1e-9), max=1.0)
+        f_cube = f_cube * dv_scale
+        # Scale the torque by the same factor: an uncapped contact torque
+        # would re-convert to linear motion at the next contact.
+        torque_cube = torque_cube * dv_scale
+        body_new = contact.integrate_free_body(
+            scene.free_body, state.body, f_cube, torque_cube, h, gravity)
+
+    return SceneState(robot=robot_new, obj=state.obj, body=body_new,
+                      anchors=new_anchors)
+
+
+def physics_step(scene: SceneSpec, state: SceneState,
+                 pos_targets) -> SceneState:
+    """Advance one control step: substeps × inner_substeps inner steps with
+    constant PD targets.
+
+    State on a CUDA device goes through the fused kernel (one launch for all
+    inner steps) or raises; the loop over :func:`_inner_step` below runs only
+    for state that lies on the CPU."""
+    check_supported(scene)
+    if state.robot.qpos.is_cuda:
+        from . import fused
+        return fused.fused_physics_step(scene, state, pos_targets)
+    return plain_physics_step(scene, state, pos_targets)
+
+
+def plain_physics_step(scene: SceneSpec, state: SceneState,
+                       pos_targets, n_steps: Optional[int] = None
+                       ) -> SceneState:
+    """The plain PyTorch version of :func:`physics_step` on whatever device
+    the state lies on: ``n_steps`` (default substeps × inner_substeps) calls
+    of :func:`_inner_step`."""
+    check_supported(scene)
+    p = scene.params
+    n = p.substeps * p.inner_substeps
+    h = p.dt / n
+    dev = state.robot.qpos.device
+    gravity = torch.tensor([0.0, 0.0, p.gravity], device=dev)
+    if state.anchors is None:
+        S = scene.spheres.link_idx.shape[0]
+        E = state.robot.qpos.shape[0]
+        state = state._replace(anchors=contact.init_anchors(E, S, dev))
+    for _ in range(n if n_steps is None else n_steps):
+        state = _inner_step(scene, state, pos_targets, h, gravity, p.coriolis)
+    return state
+
+
+def rigid_body_state(spec: TreeSpec, fk, state: TreeState, link_idx):
+    """13-dim rigid body state rows [pos, quat, linvel, angvel] for the
+    requested links.
+
+    link_idx: i64 [E, P]
+    """
+    J = kinematics.frame_jacobian(spec, fk, link_idx)  # [E, P, 6, D]
+    vel = torch.einsum("epad,ed->epa", J, state.qvel)    # [E, P, 6]
+    pos = kinematics._take_env(fk.link_pos, link_idx)
+    quat = kinematics._take_env(fk.link_quat, link_idx)
+    return torch.cat([pos, quat, vel[..., :3], vel[..., 3:]], dim=-1)

@@ -1,0 +1,105 @@
+"""Carry weights and state across from the JAX package as plain numpy.
+
+Checkpoints of the JAX package are pickles of its own classes, so reading
+one imports JAX; the port does not.  Whoever holds the JAX objects flattens
+them to numpy and hands them over here:
+
+* :func:`actor_critic_from_jax` — the flax parameter tree of ``ACParams`` →
+  a ``state_dict`` for :class:`models.actor_critic.ActorCritic`;
+* :func:`rms_from_jax` — ``{"n", "mean", "S"}`` → ``RMSState``;
+* :func:`scene_state_from_numpy` / :func:`env_state_from_numpy` (and their
+  ``*_to_numpy`` inverses) — states given as ``[E, ...]`` numpy arrays (the
+  JAX layout, which is also the port's) ↔ the port's containers on a device.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..algos.rms import RMSState
+from ..envs.base import EnvState
+from ..sim.contact import AnchorState
+from ..sim.engine import SceneState
+from ..sim.types import FreeBodyState, TreeState
+
+
+def _mlp_from_flax(tree: dict, prefix: str) -> Dict[str, torch.Tensor]:
+    """``{"params": {"Dense_i": {"kernel" [in, out], "bias"}}}`` → entries
+    ``<prefix>.hidden.i.weight [out, in]`` …; the last Dense is the head."""
+    layers = tree["params"] if "params" in tree else tree
+    names = sorted(layers, key=lambda n: int(n.rsplit("_", 1)[1]))
+    out = {}
+    for i, name in enumerate(names):
+        dst = (f"{prefix}.head" if i == len(names) - 1
+               else f"{prefix}.hidden.{i}")
+        kernel = np.asarray(layers[name]["kernel"], np.float32)
+        out[f"{dst}.weight"] = torch.from_numpy(np.array(kernel.T, order="C"))
+        out[f"{dst}.bias"] = torch.from_numpy(
+            np.array(layers[name]["bias"], np.float32))
+    return out
+
+
+def actor_critic_from_jax(np_tree: dict) -> Dict[str, torch.Tensor]:
+    """``{"actor": {"params": {...}}, "critic": {...}, "log_std"}`` (numpy
+    leaves) → ``ActorCritic.load_state_dict`` input."""
+    sd = {"log_std": torch.from_numpy(np.array(np_tree["log_std"], np.float32))}
+    sd.update(_mlp_from_flax(np_tree["actor"], "actor"))
+    sd.update(_mlp_from_flax(np_tree["critic"], "critic"))
+    return sd
+
+
+def rms_from_jax(d: dict, device="cpu") -> RMSState:
+    return RMSState(
+        n=torch.as_tensor(np.array(d["n"]), dtype=torch.int32, device=device),
+        mean=_f32(d["mean"], device), S=_f32(d["S"], device))
+
+
+def _f32(x, device):
+    return torch.as_tensor(np.array(x, np.float32), device=device)
+
+
+def scene_state_from_numpy(d: dict, device="cpu") -> SceneState:
+    """``{"robot": {qpos, qvel, root_pos, root_quat}, "body": {pos, quat,
+    linvel, angvel}, "anchors": {point, body}}`` → ``SceneState``."""
+    r, b, a = d["robot"], d["body"], d["anchors"]
+    return SceneState(
+        robot=TreeState(*[_f32(r[k], device) for k in TreeState._fields]),
+        body=FreeBodyState(*[_f32(b[k], device) for k in FreeBodyState._fields]),
+        anchors=AnchorState(
+            point=_f32(a["point"], device),
+            body=torch.as_tensor(np.array(a["body"], np.int32), device=device)))
+
+
+def scene_state_to_numpy(s: SceneState) -> dict:
+    def leaves(t):
+        return {k: getattr(t, k).detach().cpu().numpy() for k in t._fields}
+    return {"robot": leaves(s.robot), "body": leaves(s.body),
+            "anchors": leaves(s.anchors)}
+
+
+_ENV_FIELDS = ("progress", "rew_buf", "success", "reset_buf", "reset_succ",
+               "epis_max_rew", "epis_max_step")
+_ENV_DTYPES = {"progress": np.int32, "epis_max_step": np.int32,
+               "success": np.bool_, "reset_buf": np.bool_,
+               "reset_succ": np.bool_, "rew_buf": np.float32,
+               "epis_max_rew": np.float32}
+
+
+def env_state_from_numpy(d: dict, rng: torch.Generator,
+                         device="cpu") -> EnvState:
+    """``{"sim": <scene dict>, "progress", "rew_buf", ...}`` → ``EnvState``
+    (the generator is the port's own; PRNG keys do not carry over)."""
+    return EnvState(
+        sim=scene_state_from_numpy(d["sim"], device),
+        rng=rng,
+        **{k: torch.as_tensor(np.array(d[k], _ENV_DTYPES[k]), device=device)
+           for k in _ENV_FIELDS})
+
+
+def env_state_to_numpy(s: EnvState) -> dict:
+    out = {k: getattr(s, k).detach().cpu().numpy() for k in _ENV_FIELDS}
+    out["sim"] = scene_state_to_numpy(s.sim)
+    return out

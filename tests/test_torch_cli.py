@@ -1,0 +1,86 @@
+"""The port's command line end to end on the CPU:
+``train_torch.main([... "--test_only", "--device", "cpu"])`` gives finite
+``Test/*`` metrics under the names the JAX package logs, resumes a checkpoint
+of the port's own format, and refuses what is not ported by naming the
+ROADMAP item that will bring it.  (No JAX needed; the names of the env's
+extras are compared with the JAX env in ``test_torch_slice.py``.)"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from partmanip_tpu_torch.models.actor_critic import ActorCritic as TActorCritic
+from partmanip_tpu_torch.utils import checkpoint as ckpt_lib
+
+import train_torch
+
+# extras of partmanip_tpu/envs/grasp_cube.py:_reward, + what _eval_round adds
+JAX_METRICS = ["reaching_reward", "close_reward", "rot_reward", "is_reached",
+               "reaching_goal_reward", "obj_movement", "raw_reward",
+               "obj_height", "obj_up_flag", "step_id", "succ_rate", "reward"]
+
+
+def _main_args(tmp_path, *extra):
+    return ["--taskcfg", "grasp_cube", "--algocfg", "ppo", "--device", "cpu",
+            "--algo.num_envs", "4", "--algo.model.network.hid_dim", "32", "32",
+            "--task.maxEpisodeLength", "3", "--log.mode", "screen",
+            "--log.log_root", str(tmp_path), "--exp_name", "slice_seed5",
+            *extra]
+
+
+def test_cli_test_only_end_to_end(tmp_path):
+    runner = train_torch.main(_main_args(tmp_path, "--test_only"))
+    log = runner.last_log
+    assert sorted(log) == sorted(
+        f"Test/{k}_{s}" for k in JAX_METRICS for s in ("mean", "max"))
+    assert all(np.isfinite(v) for v in log.values()), log
+    assert log["Test/step_id_max"] == 3.0
+    assert runner.env.device.type == "cpu"
+    sim = runner.last_env_state.sim
+    assert bool(torch.isfinite(sim.robot.qpos).all())
+    assert bool(torch.isfinite(sim.body.pos).all())
+
+
+def test_cli_resumes_the_ports_checkpoint(tmp_path):
+    donor = TActorCritic(37, 7, {
+        "action_std": 0.5, "action_activate": "tanh", "clipAction": 1.0,
+        "network": {"name": "MLP", "hid_dim": [32, 32], "activation": "tanh"}})
+    donor.init(99)
+    tricks = {"mini_adv_norm": False, "whole_adv_norm": False,
+              "use_state_norm": True, "use_clipped_value_loss": False,
+              "use_grad_clip": True}
+    path = os.path.join(str(tmp_path), "ckpts", "model_12.ckpt")
+    ckpt_lib.save(path, {
+        "iteration": 12, "ac": donor.state_dict(), "total_steps": 12 * 8 * 4,
+        "rms": {"n": torch.tensor(5, dtype=torch.int32),
+                "mean": torch.full((1, 37), 0.25), "S": torch.full((1, 37), 2.0)},
+        "update_rms": False, "tricks": tricks, "obs_mode": "normal_state"})
+    runner = train_torch.main(
+        _main_args(tmp_path, "--test_only", "--resume", path))
+    assert runner.curr_iter == 12 and runner.total_envsteps == 12 * 8 * 4
+    for k, v in donor.state_dict().items():
+        assert torch.equal(runner.ac.state_dict()[k], v), k
+    assert all(np.isfinite(v) for v in runner.last_log.values())
+    tricks["use_state_norm"] = False
+    ckpt_lib.save(path, dict(ckpt_lib.load(path), tricks=tricks))
+    with pytest.raises(SystemExit, match="state-norm"):
+        train_torch.main(_main_args(tmp_path, "--test_only", "--resume", path))
+
+
+@pytest.mark.parametrize("extra,roadmap_item", [
+    ((), "PPO train iteration"),
+    (("--test_only", "--taskcfg", "open_drawer"), "open_drawer"),
+    (("--test_only", "--algocfg", "dagger"), "BC/DAgger"),
+    (("--test_only", "--algo.obs_mode", "depth_pc"), "renderer"),
+    (("--test_only", "--save_pose"), "tooling"),
+    (("--test_only", "--save_video"), "renderer"),
+    (("--test_only", "--parallel.num_devices", "2"), "multi-GPU"),
+    (("--test_only", "--sim.coriolis"), "coriolis"),
+], ids=["train", "open_drawer", "dagger", "vision_obs", "save_pose",
+        "save_video", "multi_gpu", "coriolis"])
+def test_unported_parts_raise_naming_the_roadmap(tmp_path, extra, roadmap_item):
+    args = _main_args(tmp_path) + list(extra)
+    with pytest.raises(NotImplementedError, match=roadmap_item):
+        train_torch.main(args)

@@ -1,0 +1,97 @@
+"""The port stands alone: importing it pulls in neither JAX nor the JAX
+package, and its entry points refuse to run without a GPU unless the caller
+asks for the CPU."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import partmanip_tpu_torch
+names = ["partmanip_tpu_torch", "train_torch", "chip_smoke"] + [
+    m.name for m in pkgutil.walk_packages(partmanip_tpu_torch.__path__,
+                                          "partmanip_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+banned = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                       "partmanip_tpu"))
+print("IMPORTED", len(names))
+print("BANNED", banned)
+"""
+
+
+def _port_modules():
+    import partmanip_tpu_torch
+    return [m.name for m in pkgutil.walk_packages(
+        partmanip_tpu_torch.__path__, "partmanip_tpu_torch.")]
+
+
+def test_fresh_interpreter_imports_no_jax():
+    out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = dict(ln.split(" ", 1) for ln in out.stdout.strip().splitlines())
+    assert int(lines["IMPORTED"]) >= 20
+    assert lines["BANNED"] == "[]", lines["BANNED"]
+
+
+def test_every_subpackage_has_its_counterpart_layout():
+    mods = _port_modules()
+    for sub in ("ops", "sim", "envs", "models", "algos", "utils"):
+        assert f"partmanip_tpu_torch.{sub}" in mods
+    for name in mods:
+        if name.endswith((".contact_states", ".convert")):
+            continue                         # the port's own helpers
+        rel = name.replace("partmanip_tpu_torch", "partmanip_tpu").replace(".", "/")
+        assert (os.path.exists(os.path.join(ROOT, rel + ".py"))
+                or os.path.isdir(os.path.join(ROOT, rel))), name
+
+
+def test_port_sources_never_name_jax_imports():
+    import re
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|partmanip_tpu)\b", re.M)
+    files = [os.path.join(ROOT, "train_torch.py"), os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "partmanip_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            assert not pat.search(f.read()), path
+
+
+def test_env_defaults_to_the_gpu_and_raises_without_one():
+    import torch
+    from partmanip_tpu_torch.config import process_cfgs
+    from partmanip_tpu_torch.envs.grasp_cube import GraspCubeEnv
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device exists")
+    cfg, sp = process_cfgs(["--algo.num_envs", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GraspCubeEnv(cfg["task"], sp)
+    assert GraspCubeEnv(cfg["task"], sp, device="cpu").device.type == "cpu"
+
+
+def test_cli_defaults_to_the_gpu_and_raises_without_one():
+    import torch
+    import train_torch
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device exists")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_torch.main(["--test_only", "--algo.num_envs", "2",
+                          "--exp_name", "no_gpu_seed1", "--log.mode", "screen"])
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

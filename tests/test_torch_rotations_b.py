@@ -1,0 +1,12 @@
+"""Parity of ``partmanip_tpu_torch/ops/rotations.py`` with the JAX package on
+the same random inputs — part b of three (see ``_torch_ops_cases.py`` for the
+inputs and the tolerance)."""
+
+import pytest
+
+import _torch_ops_cases as cases
+
+
+@pytest.mark.parametrize("name", cases.rotation_names(1))
+def test_rotations_match_jax(name):
+    cases.check_rotation(name)

@@ -1,0 +1,84 @@
+"""Entry point of the PyTorch / CUDA port (counterpart of ``train.py``).
+
+Usage:
+    python train_torch.py --taskcfg grasp_cube --algocfg ppo --test_only
+Every YAML key is exposed as a dotted CLI flag (see
+partmanip_tpu_torch/config.py).  Runs on the GPU; ``--device cpu`` runs the
+plain PyTorch path on the CPU instead.
+"""
+
+import os
+import random
+from argparse import ArgumentParser
+
+import numpy as np
+
+from partmanip_tpu_torch.config import process_cfgs
+from partmanip_tpu_torch.utils.logger import Logger
+
+
+def set_seed(seed, exp_name, resume):
+    """Seed resolution incl. seed-from-exp-name and seed-from-resume-path."""
+    if "seed" in exp_name:
+        seed = int(exp_name.split("seed")[-1])
+    elif resume:
+        try:
+            seed = int(resume.split("/")[-2].split("seed")[-1])
+        except (ValueError, IndexError):
+            seed = 1234
+    elif seed == -1:
+        seed = np.random.randint(0, 10000)
+    if "seed" not in exp_name:
+        exp_name = exp_name + f"_seed{seed}"
+    print(f"Setting seed: {seed}")
+    random.seed(seed)
+    np.random.seed(seed)
+    os.environ["PYTHONHASHSEED"] = str(seed)
+    return seed, exp_name
+
+
+def make_env(cfg, sim_params, device):
+    name = cfg["task_name"]
+    if name == "grasp_cube":
+        from partmanip_tpu_torch.envs.grasp_cube import GraspCubeEnv
+        return GraspCubeEnv(cfg["task"], sim_params, device=device)
+    raise NotImplementedError(
+        f"task {name!r} is not ported yet (ROADMAP Queue A: open_drawer)")
+
+
+def make_runner(env, cfg, logger):
+    name = cfg["algo_name"]
+    if name == "ppo":
+        from partmanip_tpu_torch.algos.ppo import PPO
+        return PPO(env, cfg["algo"], logger)
+    raise NotImplementedError(
+        f"algo {name!r} is not ported yet (ROADMAP Queue A: vision student)")
+
+
+def main(argv=None):
+    """Run the configured job; returns the runner (its ``last_log`` holds
+    the evaluation metrics)."""
+    dev_parser = ArgumentParser(add_help=False)
+    dev_parser.add_argument("--device", default="cuda")
+    dargs, rest = dev_parser.parse_known_args(argv)
+
+    cfg, sim_params = process_cfgs(rest)
+    cfg["seed"], cfg["exp_name"] = set_seed(
+        cfg["seed"], cfg["exp_name"], cfg.get("resume"))
+    logger = Logger(cfg=cfg, exp_name=cfg["exp_name"],
+                    task_name=cfg["task_name"], algo_name=cfg["algo_name"])
+    if cfg.get("resume"):
+        cfg["algo"]["resume"] = cfg["resume"] = logger.update_resume_path(
+            cfg["resume"])
+    if cfg.get("pretrain"):
+        cfg["algo"]["pretrain"] = cfg["pretrain"] = logger.update_resume_path(
+            cfg["pretrain"])
+
+    env = make_env(cfg, sim_params, dargs.device)
+    runner = make_runner(env, cfg, logger)
+    runner.run(seed=cfg["seed"], resume=cfg["algo"].get("resume"))
+    return runner
+
+
+if __name__ == "__main__":
+    main()
