@@ -22,7 +22,17 @@ import torch
 from ..models.actor_critic import ActorCritic
 from . import rms as rms_lib
 from ..utils import checkpoint as ckpt_lib
+from ..utils import convert
 from ..utils.fetch import fetch_scalars
+
+
+def _from_jax(j: dict) -> dict:
+    """A JAX PPO checkpoint (``checkpoint.load_jax``) in the port's format."""
+    return {"iteration": int(j["iteration"]),
+            "ac": convert.actor_critic_from_jax(j["params"]._asdict()),
+            "rms": j["rms"]._asdict(), "update_rms": bool(j["update_rms"]),
+            "total_steps": int(j["total_steps"]), "tricks": j["tricks"],
+            "obs_mode": j["obs_mode"]}
 
 
 class PPOTrainState(NamedTuple):
@@ -110,13 +120,17 @@ class PPO:
         return o
 
     def resume(self, ts: PPOTrainState, path: Optional[str]):
-        """Load a checkpoint of the port: ``{"iteration", "ac" (state dict),
+        """Load a checkpoint of the port (``{"iteration", "ac" (state dict),
         "rms" {"n", "mean", "S"}, "update_rms", "total_steps", "tricks",
-        "obs_mode"}``."""
+        "obs_mode"}``) or one written by the JAX package (detected by its
+        format, converted through ``utils.convert``)."""
         if not path:
             return ts
         print(f"load ckpt from {path}!")
-        d = ckpt_lib.load(path)
+        if ckpt_lib.is_jax_checkpoint(path):
+            d = _from_jax(ckpt_lib.load_jax(path))
+        else:
+            d = ckpt_lib.load(path)
         for k in self.TRICKS_KEYS:
             if self.tricks[k] != d["tricks"][k]:
                 print(f"WARNING: trick {k} inconsistent with ckpt! "

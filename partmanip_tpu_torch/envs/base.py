@@ -31,6 +31,20 @@ from ..sim import engine
 from ..sim.engine import SceneSpec, SceneState
 
 
+STATE_OBS_MODES = ("normal_state", "proprio_state")
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the GPU unless the caller names
+    another one; raises when the GPU is asked for and there is none."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU unless device='cpu' "
+            "(--device cpu) is passed")
+    return device
+
+
 class EnvState(NamedTuple):
     """Carried env-layer state, [E]-leading tensors."""
 

@@ -28,26 +28,13 @@ from ..sim import engine, franka, kinematics
 from ..sim.types import (FreeBodySpec, FreeBodyState, SimParams, TreeState,
                          to_device)
 from . import base, control
-from .base import EnvState
+from .base import STATE_OBS_MODES, EnvState, resolve_device
 
 RESET_RANGE = 0.15
 GOAL_THRESH = 0.025
 SUCCESS_POS = (0.0, 0.0, 0.2)
 CUBE_HALF = 0.025           # obj z0 0.025 ⇒ 5 cm cube
 CUBE_DENSITY = 1000.0
-
-STATE_OBS_MODES = ("normal_state", "proprio_state")
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on: the GPU unless the caller names
-    another one; raises when the GPU is asked for and there is none."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the GPU unless device='cpu' "
-            "(--device cpu) is passed")
-    return device
 
 
 class GraspCubeEnv:

@@ -1,0 +1,408 @@
+"""open_drawer task: grasp a cabinet handle and pull the drawer ≥50 % open
+(PyTorch).
+
+Counterpart of ``partmanip_tpu/envs/open_drawer.py`` for the state
+observation modes:
+
+* GAPartNet-layout asset dirs (procedurally generated if absent,
+  :mod:`assets`) are parsed and padded to rectangular [n_objs, L/D/G] spec
+  arrays, then gathered per env (``env_id % n_objs``);
+* handle-bbox forward kinematics each step:
+  ``bbox = (bbox_init + q·axis_dir) Rᵀ + t``;
+* the part-aware reward: reach-into-bbox tests on the three handle axes,
+  grip-alignment dot products, close reward, grasp-gated joint-opening
+  reward capped at ``SUC_PROP = 0.5``, multiplicative rotation shaping
+  ``rew += |rew|·rot``, +2 on success;
+* success = grasped ∧ joint ≥ 50 % open, with the persistent per-object
+  success bitmap (``task_state``, logged as ``success_objnum``);
+* obs (53) = tip body row (13) + handle mid (3) + out/short/long units (9) +
+  lengths (3) + qpos_norm (12) + qvel (12) + drawer qpos (1);
+* random reset ±0.05 m xyz, yaw quat (sin a, cos a) with a ∈ ±π/12.
+
+Every cabinet joint is simulated; only the per-env target dof feeds
+reward/obs.  The vision observation modes, mesh-handle assets and
+``scene_pose`` are not ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+import random as pyrandom
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import rotations as rot
+from ..sim import builder, contact as contact_lib
+from ..sim import engine, franka, kinematics
+from ..sim.types import BoxGeoms, SimParams, TreeState, to_device
+from . import assets, base, control
+from .base import STATE_OBS_MODES, EnvState, resolve_device
+
+SUC_PROP = 0.5
+OBJ_DEFAULT_ROOT = np.array([-0.6, 0, 0.5, 0, 0, 1, 0], np.float32)
+RESET_T_RANGE = 0.05
+RESET_R_RANGE = math.pi / 12
+
+
+class OpenDrawerEnv:
+    """Batched open_drawer environment.  The object holds the static specs
+    (as tensors on ``device``); step/reset are functions of an explicit
+    :class:`EnvState` whose ``task_state`` is the per-object success bitmap."""
+
+    def __init__(self, cfg: dict, sim_params: SimParams, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.num_envs = cfg["num_envs"]
+        self.max_episode_length = cfg["maxEpisodeLength"]
+        self.explore_step = cfg["explore_step"]
+        self.control_freq_inv = cfg["controlFrequencyInv"]
+        self.random_reset = cfg["random_reset"]
+        self.learn_input_mode = cfg.get("learn_input_mode", "normal_state")
+        self.add_proprio_obs = cfg.get("add_proprio_obs", False)
+        self.obj_scale = cfg["asset"].get("obj_scale", 0.5)
+        if self.learn_input_mode not in STATE_OBS_MODES:
+            raise NotImplementedError(
+                f"obs_mode {self.learn_input_mode!r}: the vision observation "
+                f"stack is not ported yet (ROADMAP Queue A: renderer, TSDF / "
+                f"point clouds)")
+        if cfg.get("save_video"):
+            raise NotImplementedError(
+                "save_video needs the renderer, which is not ported yet "
+                "(ROADMAP Queue A: renderer)")
+        if cfg["asset"].get("mesh_handle", False):
+            raise NotImplementedError(
+                "asset.mesh_handle=True needs baked-SDF mesh collision, which "
+                "is not ported yet (ROADMAP Queue A: mesh collision / B1c)")
+
+        rcfg = cfg["robot"]
+        mobile = "mobile" in rcfg["assetFile"]
+        self.built = franka.build_franka(mobile=mobile)
+        spheres = franka.franka_collision_spheres(self.built)
+        bi = franka.franka_body_indices(self.built)
+        self.ctrl = control.FrankaControlConfig(
+            drive_mode=rcfg["driveMode"], mobile=mobile, dt=sim_params.dt,
+            num_dofs=int(self.built.spec.dof_mask.sum()),
+            lefttip_idx=bi["lefttip"], righttip_idx=bi["righttip"],
+            root_quat=tuple(rcfg["root"][3:7]))
+        self.num_actions = self.ctrl.num_actions
+        self.num_dofs = self.ctrl.num_dofs
+
+        # ---- objects: scan split dir, shuffle (global ``random``, as the
+        # JAX package does), load padded ----
+        split = cfg["asset"]["splits"]
+        n_obj = cfg["asset"].get("num_objects", 16)
+        dirs = assets.ensure_drawer_assets(cfg["asset"]["assetRoot"], split,
+                                           n_obj)
+        pyrandom.shuffle(dirs)
+        parsed = [assets.parse_urdf(f"{d}/mobility_new.urdf") for d in dirs]
+        max_links = max(len(p.links) for p in parsed)
+        max_dofs = max(max(len(p.dof_names), 1) for p in parsed)
+        max_boxes = max(len(p.boxes) for p in parsed)
+        objs = [assets.load_drawer_object(
+            d, self.obj_scale, pad_links=max_links, pad_dofs=max_dofs,
+            max_boxes=max_boxes) for d in dirs]
+        self.objs = objs
+        self.num_objects = len(objs)
+
+        E = self.num_envs
+        obj_ids = np.arange(E) % self.num_objects
+        self.obj_lstid = obj_ids
+
+        obj_spec = builder.stack_trees([o.built.spec for o in objs])
+        obj_spec_env = type(obj_spec)(*[np.asarray(a)[obj_ids]
+                                        for a in obj_spec])
+        # Every object dof gets damping 20 / friction 5 (the reference sets
+        # these DOF properties at load time and ignores the URDF values);
+        # null in the cfg keeps the URDF values.
+        dmp = cfg["asset"].get("objDofDamping", 20.0)
+        frc = cfg["asset"].get("objDofFriction", 5.0)
+        if dmp is not None:
+            obj_spec_env = obj_spec_env._replace(dof_damping=np.full_like(
+                obj_spec_env.dof_damping, dmp))
+        if frc is not None:
+            obj_spec_env = obj_spec_env._replace(dof_friction=np.full_like(
+                obj_spec_env.dof_friction, frc))
+        boxes = BoxGeoms(
+            link_idx=np.stack([o.boxes_link_idx for o in objs])[obj_ids],
+            offset_pos=np.stack([o.boxes_pos for o in objs])[obj_ids],
+            offset_quat=np.stack([o.boxes_quat for o in objs])[obj_ids],
+            half_extents=np.stack([o.boxes_half for o in objs])[obj_ids],
+            geom_mask=np.stack([o.boxes_mask for o in objs])[obj_ids],
+            friction=np.ones((E, max_boxes), np.float32),
+        )
+
+        # specs become tensors on the device once, here
+        self.spheres = to_device(spheres, self.device)
+        self.scene = engine.SceneSpec(
+            robot=to_device(self.built.spec, self.device),
+            spheres=self.spheres, params=sim_params,
+            obj_tree=to_device(obj_spec_env, self.device),
+            obj_boxes=to_device(boxes, self.device))
+        engine.check_supported(self.scene)
+
+        # per-env part annotations
+        self.part_bbox_init = np.stack([o.handle_bbox for o in objs])[obj_ids]
+        self.part_axis_dir = np.stack([o.axis_dir for o in objs])[obj_ids]
+        self.target_dof = np.stack(
+            [np.int32(o.target_dof) for o in objs])[obj_ids]
+        self.joint_lower = np.stack(
+            [np.float32(o.joint_lower) for o in objs])[obj_ids]
+        self.joint_upper = np.stack(
+            [np.float32(o.joint_upper) for o in objs])[obj_ids]
+
+        self.default_dof = np.asarray(rcfg["dof"], np.float32)
+        self.default_root = np.asarray(rcfg["root"], np.float32)
+        self.num_obs = dict(cfg["obs_mode"])
+
+        def dev(x, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(x), dtype=dtype,
+                                   device=self.device)
+        self._default_dof_t = dev(self.default_dof)
+        self._default_root_pos_t = dev(self.default_root[:3])
+        self._default_root_quat_t = dev(
+            self.default_root[3:7] / np.linalg.norm(self.default_root[3:7]))
+        self._obj_default_pos_t = dev(OBJ_DEFAULT_ROOT[:3])
+        self._obj_default_quat_t = dev(OBJ_DEFAULT_ROOT[3:7])
+        self._bbox_init_t = dev(self.part_bbox_init)
+        self._axis_dir_t = dev(self.part_axis_dir)
+        self._target_dof_t = dev(self.target_dof, torch.int64)
+        self._joint_lower_t = dev(self.joint_lower)
+        self._joint_upper_t = dev(self.joint_upper)
+        self._obj_ids_t = dev(obj_ids, torch.int64)
+
+    # ------------------------------------------------------------------
+    # state init / reset
+    # ------------------------------------------------------------------
+
+    def make_generator(self, seed: int) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        return gen
+
+    def _default_sim(self, E: int) -> engine.SceneState:
+        d = self.device
+        D_obj = self.scene.obj_tree.dof_mask.shape[-1]
+        robot = TreeState(
+            qpos=self._default_dof_t.repeat(E, 1),
+            qvel=torch.zeros((E, self.default_dof.shape[0]), device=d),
+            root_pos=self._default_root_pos_t.repeat(E, 1),
+            root_quat=self._default_root_quat_t.repeat(E, 1))
+        obj = TreeState(
+            qpos=self.scene.obj_tree.dof_lower.expand(E, D_obj) * 1.0,
+            qvel=torch.zeros((E, D_obj), device=d),
+            root_pos=self._obj_default_pos_t.repeat(E, 1),
+            root_quat=self._obj_default_quat_t.repeat(E, 1))
+        anchors = contact_lib.init_anchors(E, self.spheres.link_idx.shape[0], d)
+        return engine.SceneState(robot=robot, obj=obj, anchors=anchors)
+
+    def _random_obj_root(self, rng: torch.Generator, E: int, draws=None):
+        """Cabinet root: default ± 0.05 m per axis, yaw quat (0,0,sin a,cos a)
+        composed onto the default rotation, a ∈ ±π/12.  ``draws=(dxyz
+        [E, 3], a [E])`` replaces the generator's draws (tests feed both
+        packages the same numbers)."""
+        d = self.device
+        pos = self._obj_default_pos_t.repeat(E, 1)
+        quat0 = self._obj_default_quat_t.expand(E, 4)
+        if not self.random_reset:
+            return pos, quat0.clone()
+        if draws is None:
+            dxyz = (torch.rand((E, 3), generator=rng, device=d) * 2.0
+                    - 1.0) * RESET_T_RANGE
+            a = (torch.rand((E,), generator=rng, device=d) * 2.0
+                 - 1.0) * RESET_R_RANGE
+        else:
+            dxyz, a = (torch.as_tensor(x, dtype=torch.float32, device=d)
+                       for x in draws)
+        zero = torch.zeros_like(a)
+        dq = torch.stack([zero, zero, torch.sin(a), torch.cos(a)], dim=-1)
+        return pos + dxyz, rot.quat_mul(quat0, dq)
+
+    def _reset_sim_fn(self, sim: engine.SceneState, mask, rng, draws=None):
+        """Partial reset: robot and cabinet joints to defaults, randomized
+        cabinet root, zero velocities, anchors released."""
+        E = mask.shape[0]
+        fresh = self._default_sim(E)
+        pos, quat = self._random_obj_root(rng, E, draws)
+        fresh = fresh._replace(obj=fresh.obj._replace(root_pos=pos,
+                                                      root_quat=quat))
+        return base.mask_where(mask, fresh, sim)
+
+    def init_state(self, rng: torch.Generator, draws=None) -> EnvState:
+        E = self.num_envs
+        st = base.init_env_state(self._default_sim(E), E, rng)
+        sim = self._reset_sim_fn(
+            st.sim, torch.ones(E, dtype=torch.bool, device=self.device), rng,
+            draws)
+        return st._replace(sim=sim, task_state=torch.zeros(
+            self.num_objects, dtype=torch.bool, device=self.device))
+
+    def reset(self, state: EnvState, draws=None) -> Tuple[EnvState, Dict]:
+        """Full reset of all envs + one settling physics step; the
+        per-object success bitmap is kept."""
+        E = self.num_envs
+        sim = self._reset_sim_fn(
+            state.sim, torch.ones(E, dtype=torch.bool, device=self.device),
+            state.rng, draws)
+        targets = self._default_dof_t.repeat(E, 1)
+        sim = engine.physics_step(self.scene, sim, targets)
+        st = base.init_env_state(sim, E, state.rng)
+        st = st._replace(task_state=state.task_state)
+        obs, _, _ = self._observations(st)
+        return st, obs
+
+    def scene_pose(self, state: EnvState):
+        raise NotImplementedError(
+            "scene_pose (offline re-rendering dumps) is not ported yet "
+            "(ROADMAP Queue A: renderer, tooling)")
+
+    # ------------------------------------------------------------------
+    # observation / reward
+    # ------------------------------------------------------------------
+
+    def _robot_view(self, sim: engine.SceneState):
+        fk = kinematics.forward_kinematics(self.scene.robot, sim.robot)
+        return control.robot_view(self.ctrl, self.scene.robot, fk, sim.robot), fk
+
+    def _target_qpos(self, sim: engine.SceneState):
+        """The target drawer joint position per env [E]."""
+        return torch.gather(sim.obj.qpos, 1, self._target_dof_t[:, None])[:, 0]
+
+    def _part_bbox(self, sim: engine.SceneState):
+        """Handle bbox in the world [E, 8, 3]."""
+        q = self._target_qpos(sim)
+        objc = (self._bbox_init_t
+                + q[:, None, None] * self._axis_dir_t[:, None, :])
+        R = rot.quat_to_mat(sim.obj.root_quat)            # [E, 3, 3]
+        return (torch.einsum("eca,eba->ecb", objc, R)
+                + sim.obj.root_pos[:, None, :])
+
+    @staticmethod
+    def _handle_axes(part_bbox):
+        out = part_bbox[:, 0] - part_bbox[:, 4]
+        long = part_bbox[:, 1] - part_bbox[:, 0]
+        short = part_bbox[:, 3] - part_bbox[:, 0]
+        mid = (part_bbox[:, 0] + part_bbox[:, 6]) / 2
+        ol = torch.linalg.norm(out, dim=-1)
+        ll = torch.linalg.norm(long, dim=-1)
+        sl = torch.linalg.norm(short, dim=-1)
+        return (out / ol[:, None], long / ll[:, None], short / sl[:, None],
+                mid, ol, ll, sl)
+
+    def _observations(self, state: EnvState):
+        view, _ = self._robot_view(state.sim)
+        part_bbox = self._part_bbox(state.sim)
+        out, long, short, mid, ol, ll, sl = self._handle_axes(part_bbox)
+        q_target = self._target_qpos(state.sim)
+        D = self.num_dofs
+        normal = torch.cat([
+            view.tip_state,                       # 13
+            mid,                                  # 3
+            out, short, long,                     # 9
+            ol[:, None], ll[:, None], sl[:, None],  # 3
+            view.qpos_normalized[:, :D],          # 12
+            view.qvel[:, :D],                     # 12
+            q_target[:, None],                    # 1  → 53
+        ], dim=-1)
+        return {"normal_state": normal}, view, part_bbox
+
+    def _reward(self, state: EnvState, view, part_bbox, actions):
+        out, long, short, mid, ol, ll, sl = self._handle_axes(part_bbox)
+
+        tip = view.tip_state
+        d = tip[:, :3] - mid
+        dist = torch.linalg.norm(d, dim=-1)
+        is_reached_out = torch.abs(torch.sum(d * out, -1)) < ol / 2
+        short_l = torch.sum((view.ltip_state[:, :3] - mid) * short, -1)
+        short_r = torch.sum((view.rtip_state[:, :3] - mid) * short, -1)
+        is_reached_short = (short_l * short_r) < 0
+        is_reached_long = torch.abs(torch.sum(d * long, -1)) < ll / 2
+        is_reached = is_reached_out & is_reached_short & is_reached_long
+        reaching = -dist + 0.1 * (is_reached_out.float()
+                                  + is_reached_short.float()
+                                  + is_reached_long.float())
+
+        hq = tip[:, 3:7]
+        grip_dir = rot.quat_axis(hq, 2)
+        sep_dir = rot.quat_axis(hq, 1)
+        down_dir = rot.quat_axis(hq, 0)
+        dot1 = torch.sum(-grip_dir * out, -1)
+        dot2 = torch.maximum(torch.sum(sep_dir * short, -1),
+                             torch.sum(-sep_dir * short, -1))
+        dot3 = torch.maximum(torch.sum(down_dir * long, -1),
+                             torch.sum(-down_dir * long, -1))
+        rot_reward = dot1 + dot2 + dot3 - 3.0
+
+        gl = view.gripper_length
+        close_reward = (0.1 - gl) * is_reached + 0.1 * (gl - 0.1) * (~is_reached)
+
+        grasp_success = (is_reached & (gl < sl + 0.01) & (rot_reward > -0.2))
+
+        q = self._target_qpos(state.sim)
+        lower, upper = self._joint_lower_t, self._joint_upper_t
+        open_frac = (q - lower) / upper
+        joint_state_reward = grasp_success * (
+            0.1 + torch.clamp(open_frac, max=SUC_PROP))
+        is_open = grasp_success & (open_frac > 0.1)
+        is_open_notgrasp = open_frac > 0.1
+
+        rew = (reaching + 0.5 * rot_reward + 5.0 * close_reward
+               + 5.0 * joint_state_reward)
+        rew = rew + torch.abs(rew) * rot_reward   # multiplicative shaping
+
+        success = grasp_success & ((q - lower) >= SUC_PROP * upper)
+        # per-object bitmap: an object is solved once any env holding it
+        # succeeds
+        hits = torch.zeros(self.num_objects, dtype=torch.int32,
+                           device=self.device).index_add_(
+            0, self._obj_ids_t, success.to(torch.int32))
+        succ_objid = state.task_state | (hits > 0)
+        rew = rew + 2.0 * success
+
+        extras = {
+            "is_open": is_open,
+            "is_open_notgrasp": is_open_notgrasp,
+            "reaching_reward": reaching,
+            "close_reward": close_reward,
+            "rot_reward": rot_reward,
+            "is_reached": is_reached,
+            "joint_state_reward": joint_state_reward,
+            "raw_reward": rew,
+            "is_grasped": grasp_success.float(),
+            "success_objnum": succ_objid,
+            "step_id": state.progress.float(),
+            "open_frac": open_frac,
+        }
+        return rew, success, succ_objid, extras
+
+    # ------------------------------------------------------------------
+    # step
+    # ------------------------------------------------------------------
+
+    def step(self, state: EnvState, actions, train: bool = True,
+             force_reset=None):
+        """One env step. Returns (state', obs_dict, rew, reset, extras)."""
+        E = self.num_envs
+        view, _ = self._robot_view(state.sim)
+        targets = control.compute_targets(self.ctrl, self.scene.robot, view,
+                                          actions)
+        default_targets = self._default_dof_t.repeat(E, 1)
+        task_state = state.task_state
+        state, final_targets, pre_extras = base.pre_physics(
+            state, targets, default_targets, self._reset_sim_fn,
+            self.explore_step, self.max_episode_length, train,
+            force_reset=force_reset)
+
+        sim = base.run_physics(self.scene, state.sim, final_targets,
+                               self.control_freq_inv)
+        state = state._replace(sim=sim, progress=state.progress + 1,
+                               task_state=task_state)
+
+        obs, view, part_bbox = self._observations(state)
+        rew, success, succ_objid, extras = self._reward(
+            state, view, part_bbox, actions)
+        extras.update(pre_extras)
+        state = state._replace(rew_buf=rew, success=success,
+                               task_state=succ_objid)
+        return state, obs, rew, state.reset_buf, extras

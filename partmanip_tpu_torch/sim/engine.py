@@ -1,16 +1,17 @@
 """Scene-level physics step (PyTorch).
 
 Counterpart of ``partmanip_tpu/sim/engine.py`` for scenes made of the
-articulated robot, the ground and an optional free body (the cube), with SDF
-penalty contacts.  :func:`_inner_step` is the plain PyTorch version of the
-fused CUDA kernel in :mod:`fused`: it runs when the state lies on the CPU and
-is what the kernel is held against on the GPU.  State on a CUDA device always
-goes through the kernel (:func:`physics_step`).
+articulated robot, the ground, and either a free body (the cube) or an
+articulated object with box collision geoms (the cabinet), with SDF penalty
+contacts.  :func:`_inner_step` is the plain PyTorch version of the fused CUDA
+kernels in :mod:`fused`: it runs when the state lies on the CPU and is what
+the kernels are held against on the GPU.  State on a CUDA device always goes
+through a kernel (:func:`physics_step`).
 
-Per-contact quantities are aggregated **per collision sphere** before they
-touch a Jacobian; the contact stiffness/damping enters the implicit solve as
-per-sphere 3×3 normal operators N = Σ_c coef·n nᵀ with A += Jᵀ N J —
-algebraically exact.
+Per-contact quantities are aggregated **per collision sphere** (robot side)
+and **per box wrench** (object side) before they touch a Jacobian; the
+contact stiffness/damping enters the implicit solve as per-sphere 3×3 normal
+operators N = Σ_c coef·n nᵀ with A += Jᵀ N J — algebraically exact.
 """
 
 from __future__ import annotations
@@ -53,16 +54,17 @@ class SceneState(NamedTuple):
 
 def check_supported(scene: SceneSpec) -> None:
     """Raise with the reason when the scene has a part the port does not
-    simulate yet (the articulated-object and mesh-SDF branches of the JAX
-    engine, and the velocity-product terms)."""
+    simulate yet (the mesh-SDF branch of the JAX engine and the
+    velocity-product terms)."""
     if scene.params.coriolis:
         raise NotImplementedError(
             "sim.coriolis=True is not ported yet (ROADMAP Queue A: tooling "
             "and generic articulations)")
-    if scene.obj_tree is not None or scene.obj_boxes is not None:
+    if (scene.obj_tree is None) != (scene.obj_boxes is None):
         raise NotImplementedError(
-            "articulated-object scenes (obj_tree / obj_boxes) are not ported "
-            "yet (ROADMAP Queue A: assets + open_drawer, kernel B1b)")
+            "an articulated object needs both its tree and its collision "
+            "boxes (obj_tree and obj_boxes); one without the other is not "
+            "a scene the engine simulates")
     if scene.obj_grids is not None or scene.grid_stack is not None:
         raise NotImplementedError(
             "mesh-SDF collision geoms (obj_grids) are not ported yet "
@@ -72,6 +74,21 @@ def check_supported(scene: SceneSpec) -> None:
 def _nnT(normal, coef):
     """coef·n nᵀ per sphere → [E, S, 3, 3]."""
     return coef[..., None, None] * normal[..., :, None] * normal[..., None, :]
+
+
+def obj_box_world(spec: TreeSpec, boxes: BoxGeoms, fk, E: int):
+    """World poses of object collision boxes [E, G, ...]."""
+    G = boxes.link_idx.shape[-1]
+    li = boxes.link_idx.expand(E, G)
+    lp = kinematics._take_env(fk.link_pos, li)
+    lq = kinematics._take_env(fk.link_quat, li)
+    return rot.transform_compose(lp, lq, boxes.offset_pos.expand(E, G, 3),
+                                 boxes.offset_quat.expand(E, G, 4))
+
+
+def _box_gather(x, g):
+    """x [E, G, k] at per-(env, sphere) box indices g [E, S] → [E, S, k]."""
+    return torch.gather(x, 1, g[..., None].expand(g.shape + x.shape[-1:]))
 
 
 def _inner_step(scene: SceneSpec, state: SceneState, pos_targets, h,
@@ -97,7 +114,7 @@ def _inner_step(scene: SceneSpec, state: SceneState, pos_targets, h,
         return touching * (h * cd + h * h * p.contact_kn)
 
     # Per-sphere best-partner bookkeeping for the stick-slip anchors:
-    # partner ids: 0 ground, 1 cube.
+    # partner ids: 0 ground, 1 cube, 2+g object box g.
     best_depth = torch.full((E, S), 1e9, device=dev)
     best = {
         "id": torch.full((E, S), -1, dtype=torch.int32, device=dev),
@@ -153,6 +170,70 @@ def _inner_step(scene: SceneSpec, state: SceneState, pos_targets, h,
                  cs_b.normal, fn_b, cs_b.friction, t_b,
                  contact.free_body_point_velocity(state.body, centers))
 
+    # 3) robot vs articulated object boxes
+    G = 0
+    if scene.obj_tree is not None:
+        ospec = scene.obj_tree
+        fk_o = kinematics.forward_kinematics(ospec, state.obj)
+        bp, bq = obj_box_world(ospec, scene.obj_boxes, fk_o, E)
+        G = bp.shape[1]
+        box_link = scene.obj_boxes.link_idx.expand(E, G)
+
+        # per-box spatial jacobians at link origin → shifted to box center
+        J6 = kinematics.frame_jacobian(ospec, fk_o, box_link)  # [E,G,6,Do]
+        Jw_box = J6[:, :, 3:, :]
+        r_box = bp - kinematics._take_env(fk_o.link_pos, box_link)
+        # Jv at box center: Jv_o + Jw × r  (column-wise cross)
+        Jv_box = J6[:, :, :3, :] + rot._cross(
+            Jw_box.transpose(-1, -2), r_box[:, :, None, :]).transpose(-1, -2)
+        qv_o = state.obj.qvel
+        v_bc = torch.einsum("egad,ed->ega", Jv_box, qv_o)   # box center vel
+        w_b = torch.einsum("egad,ed->ega", Jw_box, qv_o)    # box angular vel
+
+        def v_box_fn(pts):  # pts [E, S, G, 3]
+            r = pts - bp[:, None, :, :]
+            return v_bc[:, None, :, :] + rot._cross(w_b[:, None, :, :], r)
+
+        cs_o, _ = contact.spheres_vs_boxes(
+            centers, radii, mu_s, bp, bq,
+            scene.obj_boxes.half_extents.expand(E, G, 3),
+            scene.obj_boxes.geom_mask.expand(E, G),
+            scene.obj_boxes.friction.expand(E, G),
+            v_box_fn,
+        )
+        vs_o = v_s[:, :, None, :].expand(E, S, G, 3).reshape(E, -1, 3)
+        # one impulse budget over all S×G pairs of the env
+        f_o, fn_o, t_o = contact.penalty_forces(cs_o, vs_o, p, 0.3)
+        f_osg = f_o.reshape(E, S, G, 3)
+        t_osg = t_o.reshape(E, S, G)
+        n_osg = cs_o.normal.reshape(E, S, G, 3)
+        # best box per sphere for the anchor bookkeeping (first minimum)
+        d_sg = cs_o.depth.reshape(E, S, G)
+        masked_d = torch.where(t_osg > 0, d_sg, 1e9)
+        gbest = torch.argmin(masked_d, dim=-1)                 # [E, S]
+        take = lambda a: torch.gather(
+            a, 2, gbest.reshape(E, S, 1, *([1] * (a.ndim - 3))).expand(
+                E, S, 1, *a.shape[3:]))[:, :, 0]
+        fn_sg = fn_o.reshape(E, S, G)
+        mu_sg = cs_o.friction.reshape(E, S, G)
+        pv = cs_o.v_other.reshape(E, S, G, 3)
+        consider(take(d_sg), (2 + gbest).to(torch.int32), take(n_osg),
+                 take(fn_sg), take(mu_sg),
+                 (take(masked_d) < 0).to(centers.dtype), take(pv))
+        F_sphere = F_sphere + torch.sum(f_osg, dim=2)
+        N_sphere = N_sphere + torch.einsum(
+            "esg,esga,esgb->esab", imp_coef(t_osg, 0.3), n_osg, n_osg)
+
+        # reaction on the object: per-box wrench about the box center
+        rr = centers[:, :, None, :] - bp[:, None, :, :]
+        F_box = -torch.sum(f_osg, dim=1)                     # [E, G, 3]
+        T_box = -torch.sum(rot._cross(rr, f_osg), dim=1)     # [E, G, 3]
+        tau_o = (torch.einsum("egad,ega->ed", Jv_box, F_box)
+                 + torch.einsum("egad,ega->ed", Jw_box, T_box))
+        N_box = torch.einsum("esg,esga,esgb->egab",
+                             imp_coef(t_osg, 0.3), n_osg, n_osg)
+        obj_reaction = (tau_o, Jv_box, N_box)
+
     # ---- stick-slip tangential friction via anchors ----
     anchors = state.anchors
     if anchors is None:
@@ -164,6 +245,12 @@ def _inner_step(scene: SceneSpec, state: SceneState, pos_targets, h,
             cube_w = (rot.quat_rotate(state.body.quat[:, None], local)
                       + state.body.pos[:, None])
             out = torch.where((pid == 1)[..., None], cube_w, out)
+        if G > 0:
+            g = torch.clamp(pid.long() - 2, 0, G - 1)
+            box_w = (rot.quat_rotate(_box_gather(bq, g), local)
+                     + _box_gather(bp, g))
+            out = torch.where(((pid >= 2) & (pid < 2 + G))[..., None],
+                              box_w, out)
         return out
 
     def to_local(world, pid):
@@ -172,6 +259,12 @@ def _inner_step(scene: SceneSpec, state: SceneState, pos_targets, h,
             cube_l = rot.quat_rotate_inverse(
                 state.body.quat[:, None], world - state.body.pos[:, None])
             out = torch.where((pid == 1)[..., None], cube_l, out)
+        if G > 0:
+            g = torch.clamp(pid.long() - 2, 0, G - 1)
+            box_l = rot.quat_rotate_inverse(_box_gather(bq, g),
+                                            world - _box_gather(bp, g))
+            out = torch.where(((pid >= 2) & (pid < 2 + G))[..., None],
+                              box_l, out)
         return out
 
     sticky = scene.spheres.sticky[None].expand(E, S)
@@ -214,6 +307,17 @@ def _inner_step(scene: SceneSpec, state: SceneState, pos_targets, h,
         t_c = t_c - torch.sum(
             rot._cross(centers - state.body.pos[:, None], ftc), dim=1)
         cube_wrench = (f_c, t_c)
+    if G > 0:
+        onehot = (best["id"][..., None] - 2 == torch.arange(
+            G, device=dev)[None, None]).to(ft.dtype)           # [E, S, G]
+        F_fric = -torch.einsum("esg,esa->ega", onehot, ft)
+        r_sb = centers[:, :, None, :] - bp[:, None, :, :]
+        T_fric = -torch.einsum("esg,esga->ega", onehot,
+                               rot._cross(r_sb, ft[:, :, None, :]))
+        tau_o_f, Jp_o, N_o = obj_reaction
+        tau_o_f = tau_o_f + (torch.einsum("egad,ega->ed", Jv_box, F_fric)
+                             + torch.einsum("egad,ega->ed", Jw_box, T_fric))
+        obj_reaction = (tau_o_f, Jp_o, N_o)
 
     implicit = dynamics.ImplicitBlocks(Jp=Jp_s, N=N_sphere)
     tau_r = torch.einsum("esad,esa->ed", Jp_s, F_sphere)
@@ -260,7 +364,20 @@ def _inner_step(scene: SceneSpec, state: SceneState, pos_targets, h,
         body_new = contact.integrate_free_body(
             scene.free_body, state.body, f_cube, torque_cube, h, gravity)
 
-    return SceneState(robot=robot_new, obj=state.obj, body=body_new,
+    obj_new = state.obj
+    if scene.obj_tree is not None:
+        # the object is undriven: its own qpos is the drive target, so only
+        # joint damping / friction and the contact reactions act on it
+        ospec = scene.obj_tree
+        tau_o, Jv_box, N_box = obj_reaction
+        implicit_o = dynamics.ImplicitBlocks(Jp=Jv_box, N=N_box)
+        M_o = dynamics.mass_matrix(ospec, fk_o, E)
+        obj_new = dynamics.step_tree(
+            ospec, state.obj, fk_o, M_o, state.obj.qpos, tau_o, h, gravity,
+            implicit=implicit_o, coriolis=coriolis,
+        )
+
+    return SceneState(robot=robot_new, obj=obj_new, body=body_new,
                       anchors=new_anchors)
 
 

@@ -1,25 +1,36 @@
-"""Wrapper of the fused physics inner-step CUDA kernel (variant B1a: robot +
-ground + one free box).
+"""Wrapper of the fused physics inner-step CUDA kernels: variant B1a (robot
++ ground + one free box, grasp_cube) and variant B1b (robot + ground + one
+articulated object with box geoms, open_drawer).
 
 Counterpart of ``partmanip_tpu/sim/fused.py`` (``fused_physics_step`` around
-the Pallas kernel ``_inner_step_tiled``).  The kernel source is
-``csrc/fused_inner_step.cu``; it is compiled with ``nvcc`` for ``sm_90a`` at
-first use into a shared library with a plain C interface and loaded with
-``ctypes``.  Nothing here needs ``nvcc`` or a GPU at import time.
+the Pallas kernel ``_inner_step_tiled``, whose ``has_body`` / ``has_obj``
+variants become two kernels here).  The kernel sources are
+``csrc/fused_inner_step.cu`` (B1a) and ``csrc/fused_inner_step_obj.cu``
+(B1b), sharing ``csrc/fused_common.cuh``; each is compiled with ``nvcc`` for
+``sm_90a`` at first use into a shared library with a plain C interface,
+keyed on every compile-time size, and loaded with ``ctypes``.  Nothing here
+needs ``nvcc`` or a GPU at import time.
 
 * :func:`fused_physics_step` — what ``engine.physics_step`` calls: all
-  ``substeps × inner_substeps`` inner steps of one control step in ONE launch.
+  ``substeps × inner_substeps`` inner steps of one physics step in ONE
+  launch.
 * :func:`fused_inner_steps` — the same with an explicit ``n_steps``
-  (``n_steps=1`` is the mode the kernel is held against its plain version in,
+  (``n_steps=1`` is the mode a kernel is held against its plain version in,
   ``engine._inner_step``).
-* ``launch_count`` — rises by one wherever the kernel is launched, and
-  nowhere else.
+* ``launch_count`` / ``launch_counts`` — rise by one wherever a kernel is
+  launched (the total, and per variant), and nowhere else.
 
 State on a CUDA device is launched or raises; only state that lies on the CPU
-takes the plain version.  The kernel wants the state env-minor
+takes the plain version.  The kernels want the state env-minor
 (``[feature, E]``: a warp's loads are contiguous), the rest of the port keeps
 ``[E, feature]`` like the JAX package, so the wrapper packs before and
-unpacks after each launch (two small transposes per control step).
+unpacks after each launch (two small transposes per physics step).
+
+The robot and the contact constants go to the kernel's ``__constant__``
+struct (one robot for all envs).  B1b's object differs between envs: the
+per-env object spec is reduced on the host, once per scene, to a table of
+its distinct rows (one ``ObjSpec`` record each) plus an object id per env,
+both uploaded to device memory.
 """
 
 from __future__ import annotations
@@ -36,9 +47,11 @@ import torch
 from . import contact, dynamics, engine
 from .types import FreeBodyState, HostCache, TreeState
 
-KERNEL_SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "csrc", "fused_inner_step.cu")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "csrc")
+KERNEL_SOURCE = os.path.join(CSRC, "fused_inner_step.cu")          # B1a
+KERNEL_SOURCE_OBJ = os.path.join(CSRC, "fused_inner_step_obj.cu")  # B1b
+VARIANTS = {3: "b1a", 6: "b1b"}    # number of compile-time sizes -> variant
 # <checkout>/build, listed in .gitignore
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -47,17 +60,21 @@ BUILD_DIR = os.path.join(
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Number of kernel launches made by this module since import / the last reset.
+# Number of kernel launches made by this module since import / the last
+# reset, in all and per variant.
 launch_count = 0
+launch_counts = {"b1a": 0, "b1b": 0}
 
-_LIBS = {}            # (L, D, S) -> loaded library
-_PACKED = HostCache()  # scene.robot.parent tensor -> {key, packed Spec}
-_UPLOADED = {}        # (L, D, S) -> id of the packed spec now in constant memory
+_LIBS = {}            # compile-time sizes -> loaded library
+_PACKED = HostCache()  # scene.robot.parent tensor -> {key, packed Spec, ...}
+_UPLOADED = {}        # sizes -> id of the packed spec now in constant memory
 
 
 def reset_launch_count() -> None:
     global launch_count
     launch_count = 0
+    for k in launch_counts:
+        launch_counts[k] = 0
 
 
 def _find_nvcc() -> str:
@@ -74,44 +91,56 @@ def _find_nvcc() -> str:
     return nvcc
 
 
-def library_path(L: int, D: int, S: int) -> str:
-    return os.path.join(BUILD_DIR, f"libfused_inner_step_L{L}_D{D}_S{S}.so")
+def kernel_source(*dims) -> str:
+    """The source of the variant with these compile-time sizes: (L, D, S)
+    is B1a, (L, D, S, Lo, Do, G) is B1b."""
+    return {"b1a": KERNEL_SOURCE, "b1b": KERNEL_SOURCE_OBJ}[VARIANTS[len(dims)]]
 
 
-def build_command(L: int, D: int, S: int):
-    """The nvcc command line that builds the kernel for these array sizes."""
-    return [_find_nvcc(), *NVCC_FLAGS, f"-DFIS_L={L}", f"-DFIS_D={D}",
-            f"-DFIS_S={S}", "-o", library_path(L, D, S), KERNEL_SOURCE]
+def library_path(*dims) -> str:
+    names = ("L", "D", "S", "Lo", "Do", "G")
+    tag = "_".join(f"{n}{int(d)}" for n, d in zip(names, dims))
+    stem = os.path.splitext(os.path.basename(kernel_source(*dims)))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{tag}.so")
 
 
-def start_build(L: int, D: int, S: int) -> subprocess.Popen:
+def build_command(*dims):
+    """The nvcc command line that builds the kernel for these array sizes
+    (every compile-time size is in the library's name)."""
+    macros = ("FIS_L", "FIS_D", "FIS_S", "FIS_LO", "FIS_DO", "FIS_G")
+    return [_find_nvcc(), *NVCC_FLAGS,
+            *[f"-D{m}={int(d)}" for m, d in zip(macros, dims)],
+            "-o", library_path(*dims), kernel_source(*dims)]
+
+
+def start_build(*dims) -> subprocess.Popen:
     """Start nvcc without waiting (so several sources can build side by
-    side); hand the process to :func:`load_library` via ``finish_build``."""
+    side); hand the process to :func:`finish_build`."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    return subprocess.Popen(build_command(L, D, S), stdout=subprocess.PIPE,
+    return subprocess.Popen(build_command(*dims), stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
 
-def finish_build(proc: subprocess.Popen, L: int, D: int, S: int) -> str:
+def finish_build(proc: subprocess.Popen, *dims) -> str:
     """Wait for nvcc, keep its report (registers, spills) beside the
     library, raise if it failed.  Returns the report."""
     report, _ = proc.communicate()
-    with open(library_path(L, D, S) + ".ptxas.txt", "w") as f:
+    with open(library_path(*dims) + ".ptxas.txt", "w") as f:
         f.write(report)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{report}")
     return report
 
 
-def load_library(L: int, D: int, S: int):
+def load_library(*dims):
     """Build (when the library is not there yet) and load the kernel for
     these array sizes."""
-    key = (L, D, S)
+    key = tuple(int(d) for d in dims)
     if key in _LIBS:
         return _LIBS[key]
-    path = library_path(L, D, S)
+    path = library_path(*key)
     if not os.path.exists(path):
-        finish_build(start_build(L, D, S), L, D, S)
+        finish_build(start_build(*key), *key)
     lib = ctypes.CDLL(path)
     lib.fis_spec_bytes.restype = ctypes.c_int
     lib.fis_state_rows.restype = ctypes.c_int
@@ -119,13 +148,17 @@ def load_library(L: int, D: int, S: int):
     lib.fis_dims.restype = ctypes.c_int
     lib.fis_set_spec.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.fis_set_spec.restype = ctypes.c_int
-    lib.fis_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_void_p]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    if VARIANTS[len(key)] == "b1a":
+        lib.fis_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
+    else:
+        lib.fis_obj_bytes.restype = ctypes.c_int
+        lib.fis_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                   ptr]
     lib.fis_launch.restype = ctypes.c_int
-    got = tuple(lib.fis_dims(i) for i in range(3))
+    got = tuple(lib.fis_dims(i) for i in range(len(key)))
     if got != key:
-        raise RuntimeError(f"{path} was built for (L, D, S)={got}, not {key}")
+        raise RuntimeError(f"{path} was built for sizes {got}, not {key}")
     _LIBS[key] = lib
     return lib
 
@@ -139,13 +172,25 @@ def check_scene(scene: engine.SceneSpec) -> None:
     counterpart of the JAX package's ``fused_supported`` predicate, which
     silently switched paths instead)."""
     engine.check_supported(scene)
-    if scene.free_body is None:
+    has_obj = scene.obj_tree is not None
+    if has_obj and scene.free_body is not None:
         raise NotImplementedError(
-            "the fused kernel is built for the robot + ground + free-box "
-            "variant (B1a); scenes without a free body are not ported yet")
+            "a scene with both a free body and an articulated object has no "
+            "fused kernel yet (B1a takes the free body, B1b the object)")
+    if not has_obj and scene.free_body is None:
+        raise NotImplementedError(
+            "the fused kernels take robot + ground + a free body (B1a) or "
+            "an articulated object (B1b); a scene with neither is not "
+            "ported yet")
     if scene.robot.parent.shape[0] != 1:
         raise NotImplementedError(
             "the fused kernel needs one robot topology shared by all envs")
+    if has_obj:
+        if scene.obj_boxes.link_idx.shape[-1] > 32:
+            raise NotImplementedError(
+                "kernel B1b keeps a sphere's touching boxes in a 32-bit "
+                "mask: at most 32 object boxes")
+        return
     for name, leaf in zip(scene.free_body._fields, scene.free_body):
         if leaf.shape[0] != 1:
             raise NotImplementedError(
@@ -153,72 +198,183 @@ def check_scene(scene: engine.SceneSpec) -> None:
                 f"(free_body.{name} has env axis {leaf.shape[0]})")
 
 
-def pack_spec(scene: engine.SceneSpec) -> np.ndarray:
-    """The scene as the kernel's ``Spec`` struct (field order of
-    ``csrc/fused_inner_step.cu``), a flat array of 4-byte words."""
-    r, s, fb, p = scene.robot, scene.spheres, scene.free_body, scene.params
+def _i32(x):
+    return np.asarray(x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                      else x).astype(np.int32).reshape(-1).view(np.float32)
+
+
+def _f32(x):
+    return np.asarray(x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                      else x).astype(np.float32).reshape(-1)
+
+
+def _scalars(*xs):
+    return np.asarray(xs, np.float32)
+
+
+def _robot_words(scene: engine.SceneSpec):
+    """The robot tree and the sphere table, as the leading fields of both
+    kernels' ``Spec`` structs."""
+    r, s = scene.robot, scene.spheres
     if float(r.gravity_scale.abs().max()) != 0.0:
         raise NotImplementedError(
             "the fused kernel assumes robot gravity_scale == 0 (gravity "
             "disabled for the arm, as the Franka spec sets it)")
+    return [
+        _i32(r.parent[0]), _i32(r.joint_type[0]), _i32(r.dof_idx[0]),
+        _i32(r.dof_child[0]), _i32(s.link_idx),
+        _f32(r.origin_pos[0]), _f32(r.origin_quat[0]), _f32(r.axis[0]),
+        _f32(r.mass[0] * r.link_mask[0]), _f32(r.com[0]), _f32(r.inertia[0]),
+        _f32(r.ancestor[0]),
+        _f32(r.dof_mask[0]), _f32(r.dof_lower[0]), _f32(r.dof_upper[0]),
+        _f32(r.dof_vel_limit[0]), _f32(r.dof_effort[0]),
+        _f32(r.dof_armature[0]), _f32(r.dof_damping[0]),
+        _f32(r.dof_friction[0]), _f32(r.drive_kp[0]), _f32(r.drive_kd[0]),
+        _f32(s.offset), _f32(s.radius), _f32(s.friction), _f32(s.sticky),
+    ]
 
-    def i32(x):
-        return x.detach().cpu().numpy().astype(np.int32).reshape(-1).view(np.float32)
 
-    def f32(x):
-        return x.detach().cpu().numpy().astype(np.float32).reshape(-1)
-
-    def scalars(*xs):
-        return np.asarray(xs, np.float32)
-
-    h = p.h
-    zeta, kn = p.contact_damping_ratio, p.contact_kn
-    m_cube = float(f32(fb.mass)[0])
+def _contact_coefs(p):
+    """(cd(m_eff), coef(m_eff), anchor cdt) with the plain version's
+    formulas."""
+    zeta, kn, h = p.contact_damping_ratio, p.contact_kn, p.h
     cd = lambda m_eff: 2.0 * zeta * math.sqrt(kn * m_eff)
     coef = lambda m_eff: h * cd(m_eff) + h * h * kn
     cdt = 2.0 * contact.ANCHOR_ZETA * math.sqrt(contact.ANCHOR_KS * 0.1)
-    words = [
-        i32(r.parent[0]), i32(r.joint_type[0]), i32(r.dof_idx[0]),
-        i32(r.dof_child[0]), i32(s.link_idx),
-        f32(r.origin_pos[0]), f32(r.origin_quat[0]), f32(r.axis[0]),
-        f32(r.mass[0] * r.link_mask[0]), f32(r.com[0]), f32(r.inertia[0]),
-        f32(r.ancestor[0]),
-        f32(r.dof_mask[0]), f32(r.dof_lower[0]), f32(r.dof_upper[0]),
-        f32(r.dof_vel_limit[0]), f32(r.dof_effort[0]), f32(r.dof_armature[0]),
-        f32(r.dof_damping[0]), f32(r.dof_friction[0]), f32(r.drive_kp[0]),
-        f32(r.drive_kd[0]),
-        f32(s.offset), f32(s.radius), f32(s.friction), f32(s.sticky),
-        f32(fb.mass[:1]), f32(fb.inertia[0]), f32(fb.half_extents[0]),
-        f32(fb.gravity_scale[:1]), f32(fb.friction[:1]),
-        scalars(h, p.gravity, kn, p.contact_kt, p.max_depenetration_velocity,
-                0.1,                              # ground friction
-                cd(0.5), cd(m_cube), cd(m_cube / 4.0), coef(0.5), coef(m_cube),
-                contact.ANCHOR_KS, cdt, h * cdt + h * h * contact.ANCHOR_KS,
-                contact.FREE_BODY_HOLD_VEL, dynamics._FRICTION_VEPS,
-                dynamics._BRAKE_BETA, dynamics._SAT_VEPS),
+    return cd, coef, cdt
+
+
+def pack_spec(scene: engine.SceneSpec) -> np.ndarray:
+    """The scene as kernel B1a's ``Spec`` struct (field order of
+    ``csrc/fused_inner_step.cu``), a flat array of 4-byte words."""
+    fb, p = scene.free_body, scene.params
+    h, kn = p.h, p.contact_kn
+    m_cube = float(_f32(fb.mass)[0])
+    cd, coef, cdt = _contact_coefs(p)
+    words = _robot_words(scene) + [
+        _f32(fb.mass[:1]), _f32(fb.inertia[0]), _f32(fb.half_extents[0]),
+        _f32(fb.gravity_scale[:1]), _f32(fb.friction[:1]),
+        _scalars(h, p.gravity, kn, p.contact_kt, p.max_depenetration_velocity,
+                 0.1,                              # ground friction
+                 cd(0.5), cd(m_cube), cd(m_cube / 4.0), coef(0.5), coef(m_cube),
+                 contact.ANCHOR_KS, cdt, h * cdt + h * h * contact.ANCHOR_KS,
+                 contact.FREE_BODY_HOLD_VEL, dynamics._FRICTION_VEPS,
+                 dynamics._BRAKE_BETA, dynamics._SAT_VEPS),
     ]
     return np.ascontiguousarray(np.concatenate(words))
 
 
-def _packed_spec(scene: engine.SceneSpec) -> np.ndarray:
-    """:func:`pack_spec`, done once per scene (it reads the device back)."""
+def pack_spec_obj(scene: engine.SceneSpec) -> np.ndarray:
+    """The robot and the contact constants as kernel B1b's ``Spec`` struct
+    (field order of ``csrc/fused_inner_step_obj.cu``)."""
+    p = scene.params
+    h, kn = p.h, p.contact_kn
+    cd, coef, cdt = _contact_coefs(p)
+    words = _robot_words(scene) + [
+        _scalars(h, p.gravity, kn, p.contact_kt, p.max_depenetration_velocity,
+                 0.1,                              # ground friction
+                 cd(0.5), cd(0.3), coef(0.5), coef(0.3),
+                 contact.ANCHOR_KS, cdt, h * cdt + h * h * contact.ANCHOR_KS,
+                 dynamics._FRICTION_VEPS, dynamics._BRAKE_BETA,
+                 dynamics._SAT_VEPS),
+    ]
+    return np.ascontiguousarray(np.concatenate(words))
+
+
+def pack_obj_table(scene: engine.SceneSpec):
+    """The per-env articulated object as kernel B1b's ``ObjSpec`` records:
+    ``(table f32 [n_obj, words], obj_id i32 [E])``, one record per distinct
+    object, with ``table[obj_id]`` equal to the per-env spec it was made
+    from (checked)."""
+    o, b = scene.obj_tree, scene.obj_boxes
+    E = max(leaf.shape[0] for leaf in (*o, *b))
+    if float(o.gravity_scale.abs().max()) != 0.0:
+        raise NotImplementedError(
+            "kernel B1b assumes object gravity_scale == 0 (the cabinet's "
+            "gravity is disabled, as the open_drawer env sets it)")
+    mask = _f32(b.geom_mask)
+    if not np.all((mask == 0.0) | (mask == 1.0)):
+        raise NotImplementedError("kernel B1b takes box masks of 0 or 1 only")
+
+    def per_env(x, dtype):
+        a = np.asarray(x.detach().cpu().numpy(), dtype)
+        return np.broadcast_to(a, (E,) + a.shape[1:]).reshape(E, -1)
+
+    i32 = lambda x: per_env(x, np.int32).view(np.float32)
+    f32 = lambda x: per_env(x, np.float32)
+    cols = [
+        i32(o.parent), i32(o.joint_type), i32(o.dof_idx), i32(o.dof_child),
+        i32(b.link_idx),
+        f32(o.origin_pos), f32(o.origin_quat), f32(o.axis),
+        f32(o.mass * o.link_mask), f32(o.com), f32(o.inertia), f32(o.ancestor),
+        f32(o.dof_mask), f32(o.dof_lower), f32(o.dof_upper),
+        f32(o.dof_vel_limit), f32(o.dof_effort), f32(o.dof_armature),
+        f32(o.dof_damping), f32(o.dof_friction), f32(o.drive_kp),
+        f32(o.drive_kd),
+        f32(b.offset_pos), f32(b.offset_quat), f32(b.half_extents),
+        f32(b.geom_mask), f32(b.friction),
+    ]
+    rows = np.ascontiguousarray(np.concatenate(cols, axis=1))
+    # distinct records, compared bit for bit
+    table, obj_id = np.unique(rows.view(np.int32), axis=0, return_inverse=True)
+    table = np.ascontiguousarray(table.view(np.float32))
+    obj_id = obj_id.reshape(-1).astype(np.int32)
+    if not np.array_equal(table[obj_id].view(np.int32), rows.view(np.int32)):
+        raise RuntimeError("object table does not reproduce the per-env spec")
+    return table, obj_id
+
+
+def _packed(scene: engine.SceneSpec) -> dict:
+    """The packed ``Spec`` (and for B1b the object table and ids), done once
+    per scene: packing reads the device back."""
     slot = _PACKED.get(scene.robot.parent, dict)
     # scenes may share a robot and differ in the rest
-    key = (scene.params, id(scene.spheres.link_idx), id(scene.free_body.mass))
+    key = (scene.params, id(scene.spheres.link_idx),
+           None if scene.free_body is None else id(scene.free_body.mass),
+           None if scene.obj_tree is None else (id(scene.obj_tree.parent),
+                                                id(scene.obj_boxes.link_idx)))
     if slot.get("key") != key:
-        slot.update(key=key, spec=pack_spec(scene))
-    return slot["spec"]
+        slot.clear()
+        if scene.obj_tree is None:
+            slot.update(key=key, spec=pack_spec(scene))
+        else:
+            table, obj_id = pack_obj_table(scene)
+            slot.update(key=key, spec=pack_spec_obj(scene), table=table,
+                        obj_id=obj_id, device={})
+    return slot
+
+
+def _packed_spec(scene: engine.SceneSpec) -> np.ndarray:
+    """:func:`pack_spec` / :func:`pack_spec_obj`, done once per scene."""
+    return _packed(scene)["spec"]
 
 
 def _dims(scene: engine.SceneSpec):
-    return (scene.robot.num_links, scene.robot.num_dofs,
+    """The kernel's compile-time sizes: (L, D, S) for B1a, (L, D, S, Lo, Do,
+    G) for B1b."""
+    dims = (scene.robot.num_links, scene.robot.num_dofs,
             scene.spheres.link_idx.shape[0])
+    if scene.obj_tree is None:
+        return dims
+    return dims + (scene.obj_tree.num_links, scene.obj_tree.num_dofs,
+                   scene.obj_boxes.link_idx.shape[-1])
 
 
 def state_rows(D: int, S: int) -> int:
-    """Rows of the env-minor state buffer: qpos, qvel, root pose, body pose
-    and velocities, anchor points, targets."""
+    """Rows of B1a's env-minor state buffer: qpos, qvel, root pose, body
+    pose and velocities, anchor points, targets."""
     return D + D + 3 + 4 + 3 + 4 + 3 + 3 + 3 * S + D
+
+
+def state_rows_obj(D: int, S: int, Do: int) -> int:
+    """Rows of B1b's env-minor state buffer: qpos, qvel, root pose, object
+    qpos, qvel and root pose, anchor points, targets."""
+    return D + D + 3 + 4 + Do + Do + 3 + 4 + 3 * S + D
+
+
+def _rows(dims) -> int:
+    L, D, S = dims[:3]
+    return state_rows(D, S) if len(dims) == 3 else state_rows_obj(D, S, dims[4])
 
 
 # ----------------------------------------------------------------------
@@ -226,13 +382,18 @@ def state_rows(D: int, S: int) -> int:
 # ----------------------------------------------------------------------
 
 def pack_state(state: engine.SceneState, pos_targets):
-    """SceneState + targets → (f32 [rows, E], i32 [S, E]), env-minor."""
+    """SceneState + targets → (f32 [rows, E], i32 [S, E]), env-minor; the
+    free body's rows for B1a, the object's for B1b."""
     E = state.robot.qpos.shape[0]
-    flat = torch.cat([
-        state.robot.qpos, state.robot.qvel, state.robot.root_pos,
-        state.robot.root_quat, state.body.pos, state.body.quat,
-        state.body.linvel, state.body.angvel,
-        state.anchors.point.reshape(E, -1), pos_targets], dim=1)
+    r = state.robot
+    if state.obj is not None:
+        o = state.obj
+        part = [o.qpos, o.qvel, o.root_pos, o.root_quat]
+    else:
+        b = state.body
+        part = [b.pos, b.quat, b.linvel, b.angvel]
+    flat = torch.cat([r.qpos, r.qvel, r.root_pos, r.root_quat, *part,
+                      state.anchors.point.reshape(E, -1), pos_targets], dim=1)
     return (flat.t().contiguous(),
             state.anchors.body.to(torch.int32).t().contiguous())
 
@@ -243,18 +404,25 @@ def unpack_state(buf, anc_b, like: engine.SceneState) -> engine.SceneState:
     S = anc_b.shape[0]
     rows = buf.t()
     E = rows.shape[0]
-    qpos, qvel, root_pos, root_quat, bpos, bquat, blin, bang, anc_p, _ = \
-        torch.split(rows, [D, D, 3, 4, 3, 4, 3, 3, 3 * S, D], dim=1)
+    c = lambda x: x.contiguous()
+    if like.obj is not None:
+        Do = like.obj.qpos.shape[1]
+        sizes = [D, D, 3, 4, Do, Do, 3, 4, 3 * S, D]
+    else:
+        sizes = [D, D, 3, 4, 3, 4, 3, 3, 3 * S, D]
+    qpos, qvel, root_pos, root_quat, p0, p1, p2, p3, anc_p, _ = \
+        torch.split(rows, sizes, dim=1)
+    obj, body = like.obj, like.body
+    if like.obj is not None:
+        obj = TreeState(qpos=c(p0), qvel=c(p1), root_pos=c(p2), root_quat=c(p3))
+    else:
+        body = FreeBodyState(pos=c(p0), quat=c(p1), linvel=c(p2), angvel=c(p3))
     return engine.SceneState(
-        robot=TreeState(qpos=qpos.contiguous(), qvel=qvel.contiguous(),
-                        root_pos=root_pos.contiguous(),
-                        root_quat=root_quat.contiguous()),
-        obj=like.obj,
-        body=FreeBodyState(pos=bpos.contiguous(), quat=bquat.contiguous(),
-                           linvel=blin.contiguous(), angvel=bang.contiguous()),
-        anchors=contact.AnchorState(
-            point=anc_p.reshape(E, S, 3).contiguous(),
-            body=anc_b.t().contiguous()))
+        robot=TreeState(qpos=c(qpos), qvel=c(qvel), root_pos=c(root_pos),
+                        root_quat=c(root_quat)),
+        obj=obj, body=body,
+        anchors=contact.AnchorState(point=c(anc_p.reshape(E, S, 3)),
+                                    body=c(anc_b.t())))
 
 
 # ----------------------------------------------------------------------
@@ -262,11 +430,13 @@ def unpack_state(buf, anc_b, like: engine.SceneState) -> engine.SceneState:
 # ----------------------------------------------------------------------
 
 def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
-    """Launch the kernel on an env-minor state (see :func:`pack_state`);
-    returns new (buf, anc_b) of the same layout.  CUDA tensors only."""
+    """Launch the scene's kernel on an env-minor state (see
+    :func:`pack_state`); returns new (buf, anc_b) of the same layout.  CUDA
+    tensors only."""
     global launch_count
-    L, D, S = _dims(scene)
-    rows = state_rows(D, S)
+    dims = _dims(scene)
+    S = dims[2]
+    rows = _rows(dims)
     if not (buf.is_cuda and anc_b.is_cuda and buf.device == anc_b.device):
         raise ValueError("launch_packed needs CUDA tensors on one device")
     if buf.dtype != torch.float32 or anc_b.dtype != torch.int32:
@@ -279,26 +449,50 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
         raise ValueError("state buffers must be contiguous")
     check_scene(scene)
 
-    lib = load_library(L, D, S)
-    spec = _packed_spec(scene)
+    variant = VARIANTS[len(dims)]
+    lib = load_library(*dims)
+    packed = _packed(scene)
+    spec = packed["spec"]
     if spec.nbytes != lib.fis_spec_bytes() or rows != lib.fis_state_rows():
         raise RuntimeError(
             f"packing disagrees with the kernel: spec {spec.nbytes} vs "
             f"{lib.fis_spec_bytes()} bytes, rows {rows} vs {lib.fis_state_rows()}")
+    if variant == "b1b":
+        table = packed["table"]
+        if table.shape[1] * 4 != lib.fis_obj_bytes():
+            raise RuntimeError(
+                f"object packing disagrees with the kernel: {table.shape[1] * 4}"
+                f" vs {lib.fis_obj_bytes()} bytes per record")
+        if packed["obj_id"].shape[0] != E:
+            raise ValueError(f"the scene has {packed['obj_id'].shape[0]} envs, "
+                             f"the state {E}")
+        on_dev = packed["device"].get(buf.device)
+        if on_dev is None:
+            on_dev = packed["device"][buf.device] = (
+                torch.as_tensor(table, device=buf.device),
+                torch.as_tensor(packed["obj_id"], device=buf.device))
     with torch.cuda.device(buf.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if _UPLOADED.get((L, D, S)) != id(spec):
+        if _UPLOADED.get(dims) != id(spec):
             err = lib.fis_set_spec(spec.ctypes.data, spec.nbytes, stream)
             if err != 0:
                 raise RuntimeError(f"uploading the scene spec failed: CUDA error {err}")
-            _UPLOADED[(L, D, S)] = id(spec)
+            _UPLOADED[dims] = id(spec)
         out = torch.empty_like(buf)
         anc_out = torch.empty_like(anc_b)
-        err = lib.fis_launch(buf.data_ptr(), anc_b.data_ptr(), out.data_ptr(),
-                             anc_out.data_ptr(), E, int(n_steps), stream)
+        if variant == "b1a":
+            err = lib.fis_launch(buf.data_ptr(), anc_b.data_ptr(), out.data_ptr(),
+                                 anc_out.data_ptr(), E, int(n_steps), stream)
+        else:
+            table_t, ids_t = on_dev
+            err = lib.fis_launch(buf.data_ptr(), anc_b.data_ptr(), out.data_ptr(),
+                                 anc_out.data_ptr(), table_t.data_ptr(),
+                                 ids_t.data_ptr(), table_t.shape[0], E,
+                                 int(n_steps), stream)
     if err != 0:
-        raise RuntimeError(f"fused_inner_step launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused_inner_step ({variant}) launch failed: CUDA error {err}")
     launch_count += 1
+    launch_counts[variant] += 1
     return out, anc_out
 
 
@@ -319,7 +513,8 @@ def fused_inner_steps(scene: engine.SceneSpec, state: engine.SceneState,
 
 def fused_physics_step(scene: engine.SceneSpec, state: engine.SceneState,
                        pos_targets) -> engine.SceneState:
-    """One control step (substeps × inner_substeps inner steps) in one launch."""
+    """One physics step (substeps × inner_substeps inner steps) in one
+    launch."""
     p = scene.params
     return fused_inner_steps(scene, state, pos_targets,
                              p.substeps * p.inner_substeps)

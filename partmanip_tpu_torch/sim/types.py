@@ -114,8 +114,7 @@ class SphereGeoms(NamedTuple):
 
 
 class BoxGeoms(NamedTuple):
-    """Collision boxes attached to articulation links (object side).
-    Data only: no scene of the port uses them yet."""
+    """Collision boxes attached to articulation links (object side)."""
 
     link_idx: Tensor   # i32 [E?, G]
     offset_pos: Tensor   # f32 [E?, G, 3]

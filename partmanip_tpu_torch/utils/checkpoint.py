@@ -1,18 +1,29 @@
-"""Checkpoint save/resume of the port.
+"""Checkpoint save/resume of the port, and a reader for the JAX package's
+checkpoints.
 
-Counterpart of ``partmanip_tpu/utils/checkpoint.py``.  A checkpoint is one
-``torch.save`` of a plain dict (state dicts, RMS tensors, python scalars);
-tensors are moved to the CPU on save and loaded onto the CPU, so the reader
-decides the device.  Checkpoints of the JAX package are pickles of its own
-classes and are not read here (``utils/convert.py`` carries weights across
-as numpy).
+Counterpart of ``partmanip_tpu/utils/checkpoint.py``.  A checkpoint of the
+port is one ``torch.save`` of a plain dict (state dicts, RMS tensors, python
+scalars); tensors are moved to the CPU on save and loaded onto the CPU, so
+the reader decides the device.
+
+A checkpoint of the JAX package is a pickle whose leaves are numpy arrays,
+held in the JAX package's ``ACParams`` / ``RMSState`` named tuples beside
+optax optimizer states.  :func:`load_jax` reads it with a restricted
+unpickler that maps those two classes to local stand-ins, drops the optax
+states and refuses every other class, so it imports nothing of JAX, optax
+or the JAX package; ``utils/convert.py`` turns the result into the port's
+modules.
 """
 
 from __future__ import annotations
 
+import importlib
 import os
-from typing import Any
+import pickle
+import zipfile
+from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -35,3 +46,83 @@ def load(path: str) -> Any:
     if not os.path.exists(path):
         raise FileNotFoundError(f"no checkpoint at {path}")
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+# ----------------------------------------------------------------------
+# checkpoints of the JAX package
+# ----------------------------------------------------------------------
+
+class JaxACParams(NamedTuple):
+    """Stand-in of ``partmanip_tpu.models.actor_critic.ACParams``: flax
+    parameter trees of numpy arrays."""
+
+    actor: Any
+    critic: Any
+    log_std: Any
+
+
+class JaxRMSState(NamedTuple):
+    """Stand-in of ``partmanip_tpu.algos.rms.RMSState``."""
+
+    n: Any
+    mean: Any
+    S: Any
+
+
+class _Dropped(tuple):
+    """Stand-in of an optax optimizer state: read and thrown away."""
+
+    def __new__(cls, *args, **kwargs):
+        return super().__new__(cls)
+
+    def __setstate__(self, state):
+        pass
+
+
+_STANDINS = {
+    ("partmanip_tpu.models.actor_critic", "ACParams"): JaxACParams,
+    ("partmanip_tpu.algos.rms", "RMSState"): JaxRMSState,
+}
+# numpy's array / dtype / scalar reconstructors, under numpy 1.x and 2.x names
+_NUMPY = {("numpy", "ndarray"), ("numpy", "dtype"),
+          ("numpy.core.multiarray", "_reconstruct"),
+          ("numpy._core.multiarray", "_reconstruct"),
+          ("numpy.core.multiarray", "scalar"),
+          ("numpy._core.multiarray", "scalar")}
+
+
+class _JaxUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) in _STANDINS:
+            return _STANDINS[(module, name)]
+        if module == "optax" or module.startswith("optax."):
+            return _Dropped
+        if (module, name) in _NUMPY:
+            try:
+                mod = importlib.import_module(module)
+            except ImportError:       # the other numpy major version's name
+                mod = importlib.import_module(
+                    module.replace("numpy._core", "numpy.core")
+                    if "._core" in module else
+                    module.replace("numpy.core", "numpy._core"))
+            return getattr(mod, name)
+        raise pickle.UnpicklingError(
+            f"refusing to load {module}.{name} from a JAX checkpoint")
+
+
+def is_jax_checkpoint(path: str) -> bool:
+    """A JAX checkpoint is a bare pickle; the port's is a torch zip file."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no checkpoint at {path}")
+    return not zipfile.is_zipfile(path)
+
+
+def load_jax(path: str) -> dict:
+    """The dict a JAX ``PPO.save`` wrote, with ``params`` a
+    :class:`JaxACParams`, ``rms`` a :class:`JaxRMSState` and the optimizer
+    states dropped (``None``)."""
+    with open(path, "rb") as f:
+        d = _JaxUnpickler(f).load()
+    if not isinstance(d, dict) or not isinstance(d.get("params"), JaxACParams):
+        raise ValueError(f"{path} is not a PPO checkpoint of the JAX package")
+    return {k: (None if isinstance(v, _Dropped) else v) for k, v in d.items()}

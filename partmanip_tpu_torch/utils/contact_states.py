@@ -1,8 +1,10 @@
-"""Hand-made contact-rich grasp_cube states for checking the physics step.
+"""Hand-made contact-rich states for checking the physics step.
 
-Random policies rarely touch the cube, so a check that only rolls the env
-compares free motion.  These states put every contact branch of the inner
-step to work at once:
+Random policies rarely touch the cube or the cabinet, so a check that only
+rolls the env compares free motion.  These states put every contact branch
+of the inner step to work at once.
+
+grasp_cube (:func:`grasp_contact_states`):
 
 * even envs — the cube pinched **in the air** between the closed finger pads
   (pad ↔ cube contacts, anchors on the cube, friction reaction on the cube);
@@ -10,20 +12,36 @@ step to work at once:
   with the cube resting on the ground between them (sphere ↔ ground, sphere ↔
   cube, cube corner ↔ ground, both partners competing per sphere).
 
+open_drawer (:func:`drawer_contact_states`), by ``env % 4``:
+
+* 0 — the gripper centred **inside** the handle bar;
+* 1 — a finger pad centred where the bar meets its stand-off post
+  (a sphere touching two boxes at once);
+* 2 — the gripper pushed through the bar toward the drawer front (bar and
+  front panel at once);
+* 3 — the robot lowered until its finger pads press into the **ground**.
+
+The fingers close onto the bar (each pad 1 mm into it along the finger
+separation axis, or fully open where the bar is longer than the grip).
+
 Everything is numpy in the ``[E, ...]`` layout both packages share, made from
 a seed, so the same arrays can be handed to either.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
-from ..sim import kinematics
+from ..sim import contact, kinematics
 from ..sim.types import TreeState
 
 FINGER_GAP = 0.024     # per-finger opening: pads 1 mm into the 5 cm cube
 LOWERED_ROOT_Z = -0.247  # puts the two lowest pad spheres into the ground
+FINGER_OPEN = 0.04     # finger joint limit (m per finger)
+PAD_OFFSET = 0.01      # pad centre to gripper centre, fingers closed (m)
 
 
 def grasp_contact_states(env, num_envs: int, seed: int):
@@ -57,7 +75,9 @@ def grasp_contact_states(env, num_envs: int, seed: int):
         TreeState(qpos=t(qpos), qvel=t(np.zeros_like(qpos)),
                   root_pos=t(root_pos), root_quat=t(root_quat)))
     lp = fk.link_pos.cpu().numpy()
-    tips = 0.5 * (lp[:, env.ctrl.lefttip_idx] + lp[:, env.ctrl.righttip_idx])
+    ltip, rtip = lp[:, env.ctrl.lefttip_idx], lp[:, env.ctrl.righttip_idx]
+    tips = 0.5 * (ltip + rtip)
+    sep = (ltip - rtip) / np.linalg.norm(ltip - rtip, axis=-1, keepdims=True)
     bpos = tips.copy()
     bpos[:, 2] += 0.0125                       # pads span ~0.040 above the tip
     bpos[on_ground, 2] = half - 0.0005         # resting, 0.5 mm into the ground
@@ -84,22 +104,186 @@ def grasp_contact_states(env, num_envs: int, seed: int):
     return state, targets.astype(np.float32)
 
 
+def drawer_contact_states(env, num_envs: int, seed: int):
+    """Returns ``(state, targets)`` for an ``OpenDrawerEnv`` of the port
+    (any device; only its specs and defaults are read): ``state`` as the
+    nested numpy dict of ``utils.convert.scene_state_from_numpy`` (robot,
+    obj, anchors), ``targets`` f32 [E, D].  ``num_envs`` must be the env's
+    own count (the cabinet differs per env)."""
+    rs = np.random.RandomState(seed)
+    E, D = num_envs, env.default_dof.shape[0]
+    if E != env.num_envs:
+        raise ValueError(f"{E} states for an env of {env.num_envs}")
+    S = env.spheres.link_idx.shape[0]
+    dev = env.scene.robot.parent.device
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    o = env.scene.obj_tree
+    Do = o.dof_mask.shape[-1]
+    upper = o.dof_upper.cpu().numpy()
+    obj = {"qpos": (upper * rs.uniform(0.0, 0.3, (E, Do))).astype(np.float32),
+           "qvel": rs.uniform(-0.05, 0.05, (E, Do)) * o.dof_mask.cpu().numpy(),
+           "root_pos": (np.tile(env._obj_default_pos_t.cpu().numpy(), (E, 1))
+                        + rs.uniform(-0.02, 0.02, (E, 3))),
+           "root_quat": np.tile(env._obj_default_quat_t.cpu().numpy(), (E, 1))}
+    obj = {k: np.asarray(v, np.float32) for k, v in obj.items()}
+
+    qpos = np.tile(env.default_dof, (E, 1)).astype(np.float32)
+    qpos[:, :D - 2] += rs.uniform(-0.002, 0.002, (E, D - 2))
+    root_pos = np.tile(env.default_root[:3], (E, 1)).astype(np.float32)
+    root_quat = np.tile(env.default_root[3:7]
+                        / np.linalg.norm(env.default_root[3:7]),
+                        (E, 1)).astype(np.float32)
+    fk = kinematics.forward_kinematics(
+        env.scene.robot,
+        TreeState(qpos=t(qpos), qvel=t(np.zeros_like(qpos)),
+                  root_pos=t(root_pos), root_quat=t(root_quat)))
+    lp = fk.link_pos.cpu().numpy()
+    ltip, rtip = lp[:, env.ctrl.lefttip_idx], lp[:, env.ctrl.righttip_idx]
+    tips = 0.5 * (ltip + rtip)
+    sep = (ltip - rtip) / np.linalg.norm(ltip - rtip, axis=-1, keepdims=True)
+
+    # handle frame of each env's cabinet (only sim.obj is read)
+    bbox = env._part_bbox(SimpleNamespace(obj=TreeState(
+        *[t(obj[k]) for k in TreeState._fields])))
+    out, long, short, mid, ol, ll, sl = (x.cpu().numpy()
+                                         for x in env._handle_axes(bbox))
+    # close the fingers onto the bar: each pad 1 mm into the bar, measured
+    # from the bar's centre along the finger separation axis
+    half_ext = np.min(np.stack([
+        0.5 * ext / np.maximum(np.abs(np.sum(sep * ax, -1)), 1e-6)
+        for ext, ax in ((ll, long), (sl, short), (ol, out))]), axis=0)
+    pad_r = float(env.spheres.radius[env.spheres.sticky > 0].max())
+    pad_q = half_ext + pad_r - 0.001 - PAD_OFFSET
+    qpos[:, D - 2:] = np.clip(pad_q, 0.0, FINGER_OPEN)[:, None]
+    kind = np.arange(E) % 4
+    goal = mid.copy()
+    goal[kind == 2] -= 1.5 * ol[kind == 2, None] * out[kind == 2]
+    goal += rs.uniform(-0.002, 0.002, (E, 3))
+    root_pos += (goal - tips).astype(np.float32)
+    fk = kinematics.forward_kinematics(
+        env.scene.robot,
+        TreeState(qpos=t(qpos), qvel=t(np.zeros_like(qpos)),
+                  root_pos=t(root_pos), root_quat=t(root_quat)))
+    centers = contact.sphere_positions(env.scene.robot, fk, env.spheres, E)
+    pads = env.spheres.sticky.cpu().numpy() > 0
+    # kind 1: the first finger pad's centre where the bar's back face meets
+    # its stand-off post (posts sit 0.01 in from the bar ends, generator
+    # geometry at obj_scale 0.5)
+    junction = (mid + (0.5 * ll - 0.01)[:, None] * long
+                - 0.5 * ol[:, None] * out)
+    pad0 = centers[:, int(np.argmax(pads))].cpu().numpy()
+    shift = junction - pad0 + rs.uniform(-0.001, 0.001, (E, 3))
+    root_pos[kind == 1] += shift[kind == 1].astype(np.float32)
+    # kind 3: the lowest finger pad 2 mm into the ground
+    bottom = (centers[..., 2] - env.spheres.radius[None]).cpu().numpy()
+    pad_bottom = bottom[:, pads].min(1)
+    root_pos[kind == 3, 2] -= pad_bottom[kind == 3] + 0.002
+
+    state = {
+        "robot": {"qpos": qpos,
+                  "qvel": rs.uniform(-0.05, 0.05, (E, D)),
+                  "root_pos": root_pos, "root_quat": root_quat},
+        "obj": obj,
+        "anchors": {"point": np.zeros((E, S, 3)),
+                    "body": np.full((E, S), -1)},
+    }
+    state = {k: {kk: np.asarray(vv, np.int32 if kk == "body" and k == "anchors"
+                                else np.float32)
+                 for kk, vv in v.items()} for k, v in state.items()}
+    targets = qpos + rs.uniform(-0.02, 0.02, (E, D)).astype(np.float32)
+    targets[:, D - 2:] = 0.0                   # keep squeezing
+    return state, targets.astype(np.float32)
+
+
+def sphere_box_depths(env, state):
+    """Signed depth of every (env, sphere, object box) pair of a
+    ``SceneState`` with an articulated object, [E, S, G] (+inf for inactive
+    boxes)."""
+    import math
+    from ..ops import rotations as rot
+    from ..sim import engine
+    scene = env.scene
+    E = state.robot.qpos.shape[0]
+    fk = kinematics.forward_kinematics(scene.robot, state.robot)
+    centers = contact.sphere_positions(scene.robot, fk, env.spheres, E)
+    fk_o = kinematics.forward_kinematics(scene.obj_tree, state.obj)
+    bp, bq = engine.obj_box_world(scene.obj_tree, scene.obj_boxes, fk_o, E)
+    G, S = bp.shape[1], centers.shape[1]
+    p_local = rot.quat_rotate_inverse(bq[:, None].expand(E, S, G, 4),
+                                      centers[:, :, None] - bp[:, None])
+    dist, _ = contact.box_sdf(
+        p_local, scene.obj_boxes.half_extents.expand(E, G, 3)[:, None])
+    depth = dist - env.spheres.radius[None, :, None]
+    active = scene.obj_boxes.geom_mask.expand(E, G)[:, None] > 0
+    return torch.where(active, depth, torch.full_like(depth, math.inf))
+
+
 def touching_counts(env, state) -> dict:
     """How many (env, sphere) pairs touch each partner in a ``SceneState`` of
     the port, and how many anchors are attached to each: the evidence that a
-    check on these states exercises the contact branches."""
+    check on these states exercises the contact branches.  For a scene with
+    an articulated object: spheres touching a box, spheres touching two or
+    more boxes at once, touching (sphere, box) pairs."""
     from ..ops import rotations as rot
-    from ..sim import contact
     E = state.robot.qpos.shape[0]
     fk = kinematics.forward_kinematics(env.scene.robot, state.robot)
     centers = contact.sphere_positions(env.scene.robot, fk, env.spheres, E)
     radii = env.spheres.radius
     ground = (centers[..., 2] - radii[None]) < 0
+    counts = {"ground": int(ground.sum()),
+              "anchors_on_ground": int((state.anchors.body == 0).sum())}
+    if env.scene.obj_tree is not None:
+        touch = sphere_box_depths(env, state) < 0
+        per_sphere = touch.sum(-1)
+        counts.update(boxes=int((per_sphere > 0).sum()),
+                      two_boxes=int((per_sphere > 1).sum()),
+                      box_pairs=int(touch.sum()),
+                      anchors_on_boxes=int((state.anchors.body >= 2).sum()))
+        return counts
     p_local = rot.quat_rotate_inverse(
         state.body.quat[:, None], centers - state.body.pos[:, None])
     dist, _ = contact.box_sdf(
         p_local, env.scene.free_body.half_extents.expand(E, 3)[:, None])
     cube = (dist - radii[None]) < 0
-    return {"ground": int(ground.sum()), "cube": int(cube.sum()),
-            "anchors_on_ground": int((state.anchors.body == 0).sum()),
-            "anchors_on_cube": int((state.anchors.body == 1).sum())}
+    counts.update(cube=int(cube.sum()),
+                  anchors_on_cube=int((state.anchors.body == 1).sum()))
+    return counts
+
+
+def plain_step_with_cone_margins(env, state, targets):
+    """One plain inner step (``engine.plain_physics_step``) that also
+    returns, per (env, sphere), the relative margin (|ft_raw| − limit) / limit
+    of the stick-slip test of every anchor that keeps its partner (+inf
+    elsewhere).  An anchor within f32 rounding of the friction cone
+    (|margin| ≲ 1e-5) may stick in one implementation and slide in another:
+    its point then jumps by the normal part of its offset, a discontinuity of
+    the model, not an error of either implementation."""
+    import math
+    from ..sim import contact, engine
+    rec = {}
+    orig = contact.anchor_friction
+
+    def spy(pos, vel, normal, fn, mu, touching, pid, anchor, to_local, to_world,
+            pvel, params, m_eff):
+        cdt = 2.0 * contact.ANCHOR_ZETA * math.sqrt(contact.ANCHOR_KS * m_eff)
+        touch = touching > 0
+        same = (anchor.body == pid) & (pid >= 0) & touch
+        delta = pos - to_world(anchor.point, anchor.body)
+        dt = delta - (delta * normal).sum(-1, keepdim=True) * normal
+        vr = vel - pvel
+        vt = vr - (vr * normal).sum(-1, keepdim=True) * normal
+        raw = torch.where(same[..., None], -contact.ANCHOR_KS * dt - cdt * vt,
+                          -cdt * vt * touch[..., None])
+        lim = mu * fn
+        rec["margin"] = torch.where(
+            same, (torch.linalg.norm(raw, dim=-1) - lim) / lim.clamp(min=1e-9),
+            torch.full_like(lim, math.inf))
+        return orig(pos, vel, normal, fn, mu, touching, pid, anchor, to_local,
+                    to_world, pvel, params, m_eff)
+
+    contact.anchor_friction = spy
+    try:
+        out = engine.plain_physics_step(env.scene, state, targets, n_steps=1)
+    finally:
+        contact.anchor_friction = orig
+    return out, rec["margin"]

@@ -1,15 +1,16 @@
 """Carry weights and state across from the JAX package as plain numpy.
 
-Checkpoints of the JAX package are pickles of its own classes, so reading
-one imports JAX; the port does not.  Whoever holds the JAX objects flattens
-them to numpy and hands them over here:
+Whoever holds the JAX package's objects flattens them to numpy and hands
+them over here (``utils/checkpoint.load_jax`` does so for its checkpoints
+without importing JAX):
 
 * :func:`actor_critic_from_jax` — the flax parameter tree of ``ACParams`` →
   a ``state_dict`` for :class:`models.actor_critic.ActorCritic`;
 * :func:`rms_from_jax` — ``{"n", "mean", "S"}`` → ``RMSState``;
 * :func:`scene_state_from_numpy` / :func:`env_state_from_numpy` (and their
   ``*_to_numpy`` inverses) — states given as ``[E, ...]`` numpy arrays (the
-  JAX layout, which is also the port's) ↔ the port's containers on a device.
+  JAX layout, which is also the port's) ↔ the port's containers on a device;
+  the free body and the articulated object are each optional.
 """
 
 from __future__ import annotations
@@ -62,22 +63,31 @@ def _f32(x, device):
 
 
 def scene_state_from_numpy(d: dict, device="cpu") -> SceneState:
-    """``{"robot": {qpos, qvel, root_pos, root_quat}, "body": {pos, quat,
-    linvel, angvel}, "anchors": {point, body}}`` → ``SceneState``."""
-    r, b, a = d["robot"], d["body"], d["anchors"]
+    """``{"robot": {qpos, qvel, root_pos, root_quat}, "anchors": {point,
+    body}}`` plus, where the scene has them, ``"obj"`` (the articulated
+    object's tree state, fields as ``"robot"``) and ``"body"`` ({pos, quat,
+    linvel, angvel} of the free body) → ``SceneState``; a part that is
+    missing or ``None`` stays ``None``."""
+    r, a = d["robot"], d["anchors"]
+    tree = lambda t: TreeState(*[_f32(t[k], device) for k in TreeState._fields])
+    obj, body = d.get("obj"), d.get("body")
     return SceneState(
-        robot=TreeState(*[_f32(r[k], device) for k in TreeState._fields]),
-        body=FreeBodyState(*[_f32(b[k], device) for k in FreeBodyState._fields]),
+        robot=tree(r),
+        obj=None if obj is None else tree(obj),
+        body=None if body is None else FreeBodyState(
+            *[_f32(body[k], device) for k in FreeBodyState._fields]),
         anchors=AnchorState(
             point=_f32(a["point"], device),
             body=torch.as_tensor(np.array(a["body"], np.int32), device=device)))
 
 
 def scene_state_to_numpy(s: SceneState) -> dict:
+    """The inverse of :func:`scene_state_from_numpy` (absent parts left
+    out)."""
     def leaves(t):
         return {k: getattr(t, k).detach().cpu().numpy() for k in t._fields}
-    return {"robot": leaves(s.robot), "body": leaves(s.body),
-            "anchors": leaves(s.anchors)}
+    return {k: leaves(getattr(s, k)) for k in ("robot", "obj", "body", "anchors")
+            if getattr(s, k) is not None}
 
 
 _ENV_FIELDS = ("progress", "rew_buf", "success", "reset_buf", "reset_succ",
@@ -91,10 +101,15 @@ _ENV_DTYPES = {"progress": np.int32, "epis_max_step": np.int32,
 def env_state_from_numpy(d: dict, rng: torch.Generator,
                          device="cpu") -> EnvState:
     """``{"sim": <scene dict>, "progress", "rew_buf", ...}`` → ``EnvState``
-    (the generator is the port's own; PRNG keys do not carry over)."""
+    (the generator is the port's own; PRNG keys do not carry over).  An
+    optional ``"task_state"`` array (open_drawer's per-object success
+    bitmap) is carried as it is."""
+    ts = d.get("task_state")
     return EnvState(
         sim=scene_state_from_numpy(d["sim"], device),
         rng=rng,
+        task_state=None if ts is None else torch.as_tensor(
+            np.array(ts), device=device),
         **{k: torch.as_tensor(np.array(d[k], _ENV_DTYPES[k]), device=device)
            for k in _ENV_FIELDS})
 
@@ -102,4 +117,6 @@ def env_state_from_numpy(d: dict, rng: torch.Generator,
 def env_state_to_numpy(s: EnvState) -> dict:
     out = {k: getattr(s, k).detach().cpu().numpy() for k in _ENV_FIELDS}
     out["sim"] = scene_state_to_numpy(s.sim)
+    if s.task_state is not None:
+        out["task_state"] = s.task_state.detach().cpu().numpy()
     return out

@@ -1,11 +1,13 @@
 """Where one control step of the PyTorch / CUDA port goes on the GPU.
 
-Times the parts of the grasp_cube evaluation step at the default width
+Times the parts of the evaluation step of a task at the default width
 (2048 envs, MLP 512-512-512) with a host clock around synchronised work, and
 counts the device kernels one ``env.step`` launches with ``torch.profiler``.
-Prints one JSON line; the first line names the card.
+grasp_cube runs a randomly initialised policy; open_drawer runs the committed
+expert checkpoint and is timed 40 steps into its episode (gripper at the
+handle).  Prints one JSON line; the first line names the card.
 
-    python3 scripts/prof_torch_step.py [--envs 2048] [--steps 20]
+    python3 scripts/prof_torch_step.py [--taskcfg open_drawer] [--envs 2048] [--steps 20]
     python3 scripts/prof_torch_step.py --sweep 256 2048 16384 65536
 
 ``--sweep`` instead times the fused physics kernel alone (CUDA events, all
@@ -26,7 +28,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from partmanip_tpu_torch.algos import rms as rms_lib  # noqa: E402
 from partmanip_tpu_torch.config import process_cfgs  # noqa: E402
-from partmanip_tpu_torch.envs import control  # noqa: E402
+from partmanip_tpu_torch.envs import base, control  # noqa: E402
 from partmanip_tpu_torch.envs.grasp_cube import GraspCubeEnv  # noqa: E402
 from partmanip_tpu_torch.models.actor_critic import ActorCritic  # noqa: E402
 from partmanip_tpu_torch.sim import engine  # noqa: E402
@@ -77,6 +79,8 @@ def main():
     ap.add_argument("--envs", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--sweep", type=int, nargs="+", default=None)
+    ap.add_argument("--taskcfg", default="grasp_cube",
+                    choices=["grasp_cube", "open_drawer"])
     args = ap.parse_args()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -85,21 +89,35 @@ def main():
     if args.sweep:
         return kernel_sweep(args.sweep, args.steps)
 
-    cfg, sp = process_cfgs(["--algo.num_envs", str(args.envs)])
-    env = GraspCubeEnv(cfg["task"], sp)
-    ac = ActorCritic(37, env.num_actions, cfg["algo"]["model"]).to(env.device)
-    ac.init(0)
-    rms = rms_lib.init_rms(37, env.device)
+    drawer = args.taskcfg == "open_drawer"
+    if drawer:
+        import chip_smoke
+        env, cfg = chip_smoke.make_drawer_env(args.envs)
+        ac = chip_smoke.drawer_policy(cfg, env.device)
+        warmup = 40
+    else:
+        cfg, sp = process_cfgs(["--algo.num_envs", str(args.envs)])
+        env = GraspCubeEnv(cfg["task"], sp)
+        ac = ActorCritic(37, env.num_actions, cfg["algo"]["model"]).to(env.device)
+        ac.init(0)
+        warmup = 5
+    num_obs = env.num_obs["normal_state"]
+    rms = rms_lib.init_rms(num_obs, env.device)
     state = env.init_state(env.make_generator(1))
     state, obs = env.reset(state)
     o = obs["normal_state"]
-    for _ in range(5):                       # warm-up: builds the kernel too
+    for _ in range(warmup):                  # warm-up: builds the kernel too
         state, obs, *_ = env.step(state, ac.act_cri(o)[0], train=False)
         o = obs["normal_state"]
 
     actions = ac.act_cri(o)[0]
     view, _ = env._robot_view(state.sim)
     targets = control.compute_targets(env.ctrl, env.scene.robot, view, actions)
+    if drawer:
+        part_bbox = env._part_bbox(state.sim)
+        reward = lambda: env._reward(state, view, part_bbox, actions)
+    else:
+        reward = lambda: env._reward(state, view, actions)
     parts = {
         "policy_act_cri_ms": lambda: ac.act_cri(o),
         "rms_normalize_ms": lambda: rms_lib.normalize(rms, o, False),
@@ -107,11 +125,14 @@ def main():
         "compute_targets_ms": lambda: control.compute_targets(
             env.ctrl, env.scene.robot, view, actions),
         "physics_step_ms": lambda: engine.physics_step(env.scene, state.sim, targets),
+        "run_physics_ms": lambda: base.run_physics(env.scene, state.sim, targets,
+                                                   env.control_freq_inv),
         "observations_ms": lambda: env._observations(state),
-        "reward_ms": lambda: env._reward(state, view, actions),
+        "reward_ms": reward,
         "env_step_total_ms": lambda: env.step(state, actions, train=False),
     }
-    result = {"num_envs": args.envs,
+    result = {"taskcfg": args.taskcfg, "num_envs": args.envs,
+              "physics_steps_per_control_step": env.control_freq_inv,
               **{k: timed(fn, args.steps) for k, fn in parts.items()}}
 
     from torch.profiler import ProfilerActivity, profile

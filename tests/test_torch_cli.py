@@ -71,7 +71,8 @@ def test_cli_resumes_the_ports_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("extra,roadmap_item", [
     ((), "PPO train iteration"),
-    (("--test_only", "--taskcfg", "open_drawer"), "open_drawer"),
+    (("--test_only", "--taskcfg", "open_drawer", "--task.asset.mesh_handle"),
+     "mesh collision"),
     (("--test_only", "--algocfg", "dagger"), "BC/DAgger"),
     (("--test_only", "--algo.obs_mode", "depth_pc"), "renderer"),
     (("--test_only", "--save_pose"), "tooling"),

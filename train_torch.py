@@ -2,6 +2,8 @@
 
 Usage:
     python train_torch.py --taskcfg grasp_cube --algocfg ppo --test_only
+    python train_torch.py --taskcfg open_drawer --algocfg ppo --test_only \
+        --resume artifacts/open_drawer_ppo/expert_r3c_seed389/model_30000.ckpt
 Every YAML key is exposed as a dotted CLI flag (see
 partmanip_tpu_torch/config.py).  Runs on the GPU; ``--device cpu`` runs the
 plain PyTorch path on the CPU instead.
@@ -42,8 +44,10 @@ def make_env(cfg, sim_params, device):
     if name == "grasp_cube":
         from partmanip_tpu_torch.envs.grasp_cube import GraspCubeEnv
         return GraspCubeEnv(cfg["task"], sim_params, device=device)
-    raise NotImplementedError(
-        f"task {name!r} is not ported yet (ROADMAP Queue A: open_drawer)")
+    if name == "open_drawer":
+        from partmanip_tpu_torch.envs.open_drawer import OpenDrawerEnv
+        return OpenDrawerEnv(cfg["task"], sim_params, device=device)
+    raise NotImplementedError(f"task {name!r} has no env in the port")
 
 
 def make_runner(env, cfg, logger):
