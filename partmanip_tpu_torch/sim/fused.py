@@ -17,8 +17,8 @@ needs ``nvcc`` or a GPU at import time.
 * :func:`fused_inner_steps` — the same with an explicit ``n_steps``
   (``n_steps=1`` is the mode a kernel is held against its plain version in,
   ``engine._inner_step``).
-* ``launch_count`` / ``launch_counts`` — rise by one wherever a kernel is
-  launched (the total, and per variant), and nowhere else.
+* ``launch_counts`` — per variant, rises by one wherever that kernel is
+  launched, and nowhere else.
 
 State on a CUDA device is launched or raises; only state that lies on the CPU
 takes the plain version.  The kernels want the state env-minor
@@ -51,7 +51,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 KERNEL_SOURCE = os.path.join(CSRC, "fused_inner_step.cu")          # B1a
 KERNEL_SOURCE_OBJ = os.path.join(CSRC, "fused_inner_step_obj.cu")  # B1b
-VARIANTS = {3: "b1a", 6: "b1b"}    # number of compile-time sizes -> variant
+KERNEL_SOURCES = {"b1a": KERNEL_SOURCE, "b1b": KERNEL_SOURCE_OBJ}
 # <checkout>/build, listed in .gitignore
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -61,18 +61,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Number of kernel launches made by this module since import / the last
-# reset, in all and per variant.
-launch_count = 0
+# reset, per variant.
 launch_counts = {"b1a": 0, "b1b": 0}
 
-_LIBS = {}            # compile-time sizes -> loaded library
+_LIBS = {}            # (variant, compile-time sizes) -> loaded library
 _PACKED = HostCache()  # scene.robot.parent tensor -> {key, packed Spec, ...}
-_UPLOADED = {}        # sizes -> id of the packed spec now in constant memory
+_UPLOADED = {}        # (variant, sizes) -> id of the packed spec in constant memory
 
 
-def reset_launch_count() -> None:
-    global launch_count
-    launch_count = 0
+def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
 
@@ -91,56 +88,51 @@ def _find_nvcc() -> str:
     return nvcc
 
 
-def kernel_source(*dims) -> str:
-    """The source of the variant with these compile-time sizes: (L, D, S)
-    is B1a, (L, D, S, Lo, Do, G) is B1b."""
-    return {"b1a": KERNEL_SOURCE, "b1b": KERNEL_SOURCE_OBJ}[VARIANTS[len(dims)]]
-
-
-def library_path(*dims) -> str:
+def library_path(variant: str, dims) -> str:
     names = ("L", "D", "S", "Lo", "Do", "G")
     tag = "_".join(f"{n}{int(d)}" for n, d in zip(names, dims))
-    stem = os.path.splitext(os.path.basename(kernel_source(*dims)))[0]
+    stem = os.path.splitext(os.path.basename(KERNEL_SOURCES[variant]))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{tag}.so")
 
 
-def build_command(*dims):
-    """The nvcc command line that builds the kernel for these array sizes
+def build_command(variant: str, dims):
+    """The nvcc command line that builds ``variant`` for these array sizes
     (every compile-time size is in the library's name)."""
     macros = ("FIS_L", "FIS_D", "FIS_S", "FIS_LO", "FIS_DO", "FIS_G")
     return [_find_nvcc(), *NVCC_FLAGS,
             *[f"-D{m}={int(d)}" for m, d in zip(macros, dims)],
-            "-o", library_path(*dims), kernel_source(*dims)]
+            "-o", library_path(variant, dims), KERNEL_SOURCES[variant]]
 
 
-def start_build(*dims) -> subprocess.Popen:
+def start_build(variant: str, dims) -> subprocess.Popen:
     """Start nvcc without waiting (so several sources can build side by
     side); hand the process to :func:`finish_build`."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    return subprocess.Popen(build_command(*dims), stdout=subprocess.PIPE,
+    return subprocess.Popen(build_command(variant, dims), stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
 
-def finish_build(proc: subprocess.Popen, *dims) -> str:
+def finish_build(proc: subprocess.Popen, variant: str, dims) -> str:
     """Wait for nvcc, keep its report (registers, spills) beside the
     library, raise if it failed.  Returns the report."""
     report, _ = proc.communicate()
-    with open(library_path(*dims) + ".ptxas.txt", "w") as f:
+    with open(library_path(variant, dims) + ".ptxas.txt", "w") as f:
         f.write(report)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{report}")
     return report
 
 
-def load_library(*dims):
-    """Build (when the library is not there yet) and load the kernel for
+def load_library(variant: str, dims):
+    """Build (when the library is not there yet) and load ``variant`` for
     these array sizes."""
-    key = tuple(int(d) for d in dims)
+    dims = tuple(int(d) for d in dims)
+    key = (variant, dims)
     if key in _LIBS:
         return _LIBS[key]
-    path = library_path(*key)
+    path = library_path(variant, dims)
     if not os.path.exists(path):
-        finish_build(start_build(*key), *key)
+        finish_build(start_build(variant, dims), variant, dims)
     lib = ctypes.CDLL(path)
     lib.fis_spec_bytes.restype = ctypes.c_int
     lib.fis_state_rows.restype = ctypes.c_int
@@ -149,16 +141,16 @@ def load_library(*dims):
     lib.fis_set_spec.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.fis_set_spec.restype = ctypes.c_int
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    if VARIANTS[len(key)] == "b1a":
+    if variant == "b1a":
         lib.fis_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
     else:
         lib.fis_obj_bytes.restype = ctypes.c_int
         lib.fis_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                    ptr]
     lib.fis_launch.restype = ctypes.c_int
-    got = tuple(lib.fis_dims(i) for i in range(len(key)))
-    if got != key:
-        raise RuntimeError(f"{path} was built for sizes {got}, not {key}")
+    got = tuple(lib.fis_dims(i) for i in range(len(dims)))
+    if got != dims:
+        raise RuntimeError(f"{path} was built for sizes {got}, not {dims}")
     _LIBS[key] = lib
     return lib
 
@@ -335,7 +327,7 @@ def _packed(scene: engine.SceneSpec) -> dict:
                                                 id(scene.obj_boxes.link_idx)))
     if slot.get("key") != key:
         slot.clear()
-        if scene.obj_tree is None:
+        if variant(scene) == "b1a":
             slot.update(key=key, spec=pack_spec(scene))
         else:
             table, obj_id = pack_obj_table(scene)
@@ -349,12 +341,18 @@ def _packed_spec(scene: engine.SceneSpec) -> np.ndarray:
     return _packed(scene)["spec"]
 
 
+def variant(scene: engine.SceneSpec) -> str:
+    """The kernel that runs this scene: B1b with an articulated object, B1a
+    (free body) otherwise."""
+    return "b1a" if scene.obj_tree is None else "b1b"
+
+
 def _dims(scene: engine.SceneSpec):
     """The kernel's compile-time sizes: (L, D, S) for B1a, (L, D, S, Lo, Do,
     G) for B1b."""
     dims = (scene.robot.num_links, scene.robot.num_dofs,
             scene.spheres.link_idx.shape[0])
-    if scene.obj_tree is None:
+    if variant(scene) == "b1a":
         return dims
     return dims + (scene.obj_tree.num_links, scene.obj_tree.num_dofs,
                    scene.obj_boxes.link_idx.shape[-1])
@@ -372,9 +370,9 @@ def state_rows_obj(D: int, S: int, Do: int) -> int:
     return D + D + 3 + 4 + Do + Do + 3 + 4 + 3 * S + D
 
 
-def _rows(dims) -> int:
+def _rows(variant: str, dims) -> int:
     L, D, S = dims[:3]
-    return state_rows(D, S) if len(dims) == 3 else state_rows_obj(D, S, dims[4])
+    return state_rows(D, S) if variant == "b1a" else state_rows_obj(D, S, dims[4])
 
 
 # ----------------------------------------------------------------------
@@ -433,10 +431,10 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
     """Launch the scene's kernel on an env-minor state (see
     :func:`pack_state`); returns new (buf, anc_b) of the same layout.  CUDA
     tensors only."""
-    global launch_count
+    kind = variant(scene)
     dims = _dims(scene)
     S = dims[2]
-    rows = _rows(dims)
+    rows = _rows(kind, dims)
     if not (buf.is_cuda and anc_b.is_cuda and buf.device == anc_b.device):
         raise ValueError("launch_packed needs CUDA tensors on one device")
     if buf.dtype != torch.float32 or anc_b.dtype != torch.int32:
@@ -449,15 +447,14 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
         raise ValueError("state buffers must be contiguous")
     check_scene(scene)
 
-    variant = VARIANTS[len(dims)]
-    lib = load_library(*dims)
+    lib = load_library(kind, dims)
     packed = _packed(scene)
     spec = packed["spec"]
     if spec.nbytes != lib.fis_spec_bytes() or rows != lib.fis_state_rows():
         raise RuntimeError(
             f"packing disagrees with the kernel: spec {spec.nbytes} vs "
             f"{lib.fis_spec_bytes()} bytes, rows {rows} vs {lib.fis_state_rows()}")
-    if variant == "b1b":
+    if kind == "b1b":
         table = packed["table"]
         if table.shape[1] * 4 != lib.fis_obj_bytes():
             raise RuntimeError(
@@ -473,14 +470,14 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
                 torch.as_tensor(packed["obj_id"], device=buf.device))
     with torch.cuda.device(buf.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if _UPLOADED.get(dims) != id(spec):
+        if _UPLOADED.get((kind, dims)) != id(spec):
             err = lib.fis_set_spec(spec.ctypes.data, spec.nbytes, stream)
             if err != 0:
                 raise RuntimeError(f"uploading the scene spec failed: CUDA error {err}")
-            _UPLOADED[dims] = id(spec)
+            _UPLOADED[kind, dims] = id(spec)
         out = torch.empty_like(buf)
         anc_out = torch.empty_like(anc_b)
-        if variant == "b1a":
+        if kind == "b1a":
             err = lib.fis_launch(buf.data_ptr(), anc_b.data_ptr(), out.data_ptr(),
                                  anc_out.data_ptr(), E, int(n_steps), stream)
         else:
@@ -490,9 +487,8 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
                                  ids_t.data_ptr(), table_t.shape[0], E,
                                  int(n_steps), stream)
     if err != 0:
-        raise RuntimeError(f"fused_inner_step ({variant}) launch failed: CUDA error {err}")
-    launch_count += 1
-    launch_counts[variant] += 1
+        raise RuntimeError(f"fused_inner_step ({kind}) launch failed: CUDA error {err}")
+    launch_counts[kind] += 1
     return out, anc_out
 
 

@@ -249,41 +249,3 @@ def touching_counts(env, state) -> dict:
                   anchors_on_cube=int((state.anchors.body == 1).sum()))
     return counts
 
-
-def plain_step_with_cone_margins(env, state, targets):
-    """One plain inner step (``engine.plain_physics_step``) that also
-    returns, per (env, sphere), the relative margin (|ft_raw| − limit) / limit
-    of the stick-slip test of every anchor that keeps its partner (+inf
-    elsewhere).  An anchor within f32 rounding of the friction cone
-    (|margin| ≲ 1e-5) may stick in one implementation and slide in another:
-    its point then jumps by the normal part of its offset, a discontinuity of
-    the model, not an error of either implementation."""
-    import math
-    from ..sim import contact, engine
-    rec = {}
-    orig = contact.anchor_friction
-
-    def spy(pos, vel, normal, fn, mu, touching, pid, anchor, to_local, to_world,
-            pvel, params, m_eff):
-        cdt = 2.0 * contact.ANCHOR_ZETA * math.sqrt(contact.ANCHOR_KS * m_eff)
-        touch = touching > 0
-        same = (anchor.body == pid) & (pid >= 0) & touch
-        delta = pos - to_world(anchor.point, anchor.body)
-        dt = delta - (delta * normal).sum(-1, keepdim=True) * normal
-        vr = vel - pvel
-        vt = vr - (vr * normal).sum(-1, keepdim=True) * normal
-        raw = torch.where(same[..., None], -contact.ANCHOR_KS * dt - cdt * vt,
-                          -cdt * vt * touch[..., None])
-        lim = mu * fn
-        rec["margin"] = torch.where(
-            same, (torch.linalg.norm(raw, dim=-1) - lim) / lim.clamp(min=1e-9),
-            torch.full_like(lim, math.inf))
-        return orig(pos, vel, normal, fn, mu, touching, pid, anchor, to_local,
-                    to_world, pvel, params, m_eff)
-
-    contact.anchor_friction = spy
-    try:
-        out = engine.plain_physics_step(env.scene, state, targets, n_steps=1)
-    finally:
-        contact.anchor_friction = orig
-    return out, rec["margin"]

@@ -92,8 +92,9 @@ def main():
     drawer = args.taskcfg == "open_drawer"
     if drawer:
         import chip_smoke
-        env, cfg = chip_smoke.make_drawer_env(args.envs)
-        ac = chip_smoke.drawer_policy(cfg, env.device)
+        path = next(p for p in chip_smoke.PATHS if p.kernel == "b1b")
+        env, cfg = chip_smoke.make_env(path, args.envs)
+        ac = chip_smoke.expert_policy(env, cfg)
         warmup = 40
     else:
         cfg, sp = process_cfgs(["--algo.num_envs", str(args.envs)])

@@ -114,14 +114,14 @@ def test_cpu_state_never_touches_the_build(envs, monkeypatch):
         raise AssertionError("the kernel library was asked for on the CPU")
     for name in ("load_library", "start_build", "_find_nvcc", "launch_packed"):
         monkeypatch.setattr(fused, name, boom)
-    fused.reset_launch_count()
+    fused.reset_launch_counts()
     sim = tenv._default_sim(E)
     targets = torch.as_tensor(np.tile(tenv.default_dof, (E, 1)))
     out = tengine.physics_step(tenv.scene, sim, targets)
     via_wrapper = fused.fused_physics_step(tenv.scene, sim, targets)
     assert torch.equal(out.robot.qpos, via_wrapper.robot.qpos)
     assert bool(torch.isfinite(out.body.pos).all())
-    assert fused.launch_count == 0
+    assert sum(fused.launch_counts.values()) == 0
 
 
 def test_launch_refuses_cpu_tensors(envs):

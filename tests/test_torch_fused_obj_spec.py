@@ -107,23 +107,25 @@ def test_state_rows_match_the_kernel_enum(denv):
         "R_QPOS", "R_QVEL", "R_ROOTP", "R_ROOTQ", "R_OQ", "R_OV", "R_ORP", "R_ORQ",
         "R_ANCP", "R_TGT", "FIS_NF"]
     L, D, S, Lo, Do, G = fused._dims(denv.scene)
+    assert fused.variant(denv.scene) == "b1b"
     assert (L, D, S, Do) == (16, 12, 18, 4)
     assert fused.state_rows_obj(D, S, Do) == 3 * D + 7 + 2 * Do + 7 + 3 * S
 
 
 def test_build_is_keyed_on_every_size(monkeypatch):
     monkeypatch.setattr(fused, "_find_nvcc", lambda: "nvcc")
-    cmd = fused.build_command(16, 12, 18, 9, 4, 25)
+    cmd = fused.build_command("b1b", (16, 12, 18, 9, 4, 25))
     for flag in ("-DFIS_L=16", "-DFIS_D=12", "-DFIS_S=18", "-DFIS_LO=9",
                  "-DFIS_DO=4", "-DFIS_G=25", "arch=compute_90a,code=sm_90a"):
         assert flag in cmd
     assert not any("fast" in c for c in cmd)
     assert cmd[-1] == fused.KERNEL_SOURCE_OBJ and os.path.exists(cmd[-1])
-    assert fused.library_path(16, 12, 18, 9, 4, 25).endswith(
+    assert fused.library_path("b1b", (16, 12, 18, 9, 4, 25)).endswith(
         "libfused_inner_step_obj_L16_D12_S18_Lo9_Do4_G25.so")
-    assert fused.library_path(16, 12, 18, 9, 4, 24) != fused.library_path(
-        16, 12, 18, 9, 4, 25)
-    assert fused.library_path(13, 9, 18).endswith("libfused_inner_step_L13_D9_S18.so")
+    assert fused.library_path("b1b", (16, 12, 18, 9, 4, 24)) != fused.library_path(
+        "b1b", (16, 12, 18, 9, 4, 25))
+    assert fused.library_path("b1a", (13, 9, 18)).endswith(
+        "libfused_inner_step_L13_D9_S18.so")
 
 
 def test_layout_roundtrip_is_exact(denv):
@@ -152,13 +154,13 @@ def test_cpu_state_never_touches_the_build(denv, monkeypatch):
         raise AssertionError("the kernel library was asked for on the CPU")
     for name in ("load_library", "start_build", "_find_nvcc", "launch_packed"):
         monkeypatch.setattr(fused, name, boom)
-    fused.reset_launch_count()
+    fused.reset_launch_counts()
     sim = denv._default_sim(E)
     targets = torch.as_tensor(np.tile(denv.default_dof, (E, 1)))
     out = engine.physics_step(denv.scene, sim, targets)
     via_wrapper = fused.fused_physics_step(denv.scene, sim, targets)
     assert torch.equal(out.obj.qpos, via_wrapper.obj.qpos)
-    assert fused.launch_count == 0 and fused.launch_counts == {"b1a": 0, "b1b": 0}
+    assert fused.launch_counts == {"b1a": 0, "b1b": 0}
     monkeypatch.undo()
     buf, anc_b = fused.pack_state(sim, targets)
     with pytest.raises(ValueError, match="CUDA"):      # the launch itself refuses

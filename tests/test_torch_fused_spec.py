@@ -68,6 +68,7 @@ def test_packed_spec_matches_the_kernel_struct(tenv):
 
 def test_state_rows_match_the_kernel_enum(tenv):
     L, D, S = fused._dims(tenv.scene)
+    assert fused.variant(tenv.scene) == "b1a"
     src = _cu_source()
     rows = re.search(r"enum \{(.*?)\};", src, re.S).group(1)
     names = re.findall(r"(\w+)\s*=", rows)
@@ -80,7 +81,7 @@ def test_build_command_targets_hopper(monkeypatch):
     """The command line the GPU host runs: sm_90a, no fast-math, only the
     port's own source."""
     monkeypatch.setattr(fused, "_find_nvcc", lambda: "nvcc")
-    cmd = fused.build_command(13, 9, 18)
+    cmd = fused.build_command("b1a", (13, 9, 18))
     assert "arch=compute_90a,code=sm_90a" in cmd and "-O3" in cmd
     assert not any("fast" in c for c in cmd)
     assert cmd[-1] == fused.KERNEL_SOURCE and os.path.exists(cmd[-1])

@@ -3,6 +3,7 @@
 Usage:
     python train_torch.py --taskcfg grasp_cube --algocfg ppo --test_only
     python train_torch.py --taskcfg open_drawer --algocfg ppo --test_only \
+        --algo.tricks.use_state_norm \
         --resume artifacts/open_drawer_ppo/expert_r3c_seed389/model_30000.ckpt
 Every YAML key is exposed as a dotted CLI flag (see
 partmanip_tpu_torch/config.py).  Runs on the GPU; ``--device cpu`` runs the
