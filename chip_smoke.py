@@ -5,16 +5,18 @@ kernels.
 
     python3 chip_smoke.py            # needs one NVIDIA GPU and nvcc
 
-Two paths, each with its kernel: the grasp_cube evaluation rollout (kernel
-B1a, robot + free cube) and the open_drawer evaluation of the committed
-expert checkpoint (kernel B1b, robot + articulated cabinet).  Every phase
-runs once per path.  Prints one JSON object per phase (``device``,
-``build``, then ``kernel_check``, ``small_reference``, ``main_path`` and
-``timing`` for each path), then the ``kernels`` line, the card's name and
-power limit, and ``{"ok": true, "device": {...}}`` as the last line.  Any
-failed phase raises, so the script exits non-zero and prints no result
-line.  ``--only`` runs a subset of the phases (for bringing up a kernel);
-the default is all.
+Three paths: the grasp_cube evaluation rollout (kernel B1a, robot + free
+cube), the open_drawer evaluation of the committed expert checkpoint (kernel
+B1b, robot + articulated cabinet), and the open_drawer point-cloud DAgger
+student evaluation (kernels B2, the sphere-tracing depth camera, and B3,
+farthest-point sampling, beside B1b's physics).  Every phase runs once per
+path.  Prints one JSON object per phase (``device``, ``build``, then
+``kernel_check``, ``small_reference``, ``main_path`` and ``timing`` for
+each path, and the vision path's ``step_breakdown``), then the ``kernels``
+line, the card's name and power limit, and ``{"ok": true, "device":
+{...}}`` as the last line.  Any failed phase raises, so the script exits
+non-zero and prints no result line.  ``--only`` runs a subset of the phases
+(for bringing up a kernel); the default is all.
 """
 
 import argparse
@@ -54,7 +56,7 @@ def nvidia_smi_line():
 
 
 # ----------------------------------------------------------------------
-# the two paths
+# the two physics paths
 # ----------------------------------------------------------------------
 
 def random_policy(env, cfg):
@@ -119,8 +121,8 @@ def expert_rollout(env, cfg, steps, seed):
 
 
 class Path(NamedTuple):
-    """What differs between the two paths; every phase takes one."""
-    kernel: str                 # key of fused.launch_counts
+    """What differs between the two physics paths; every phase takes one."""
+    kernel: str                 # key of cuda_lib.launch_counts()
     source: str
     replaces: str
     replaces_function: str
@@ -200,8 +202,8 @@ def check_cases(path, env, cfg):
 def phase_device():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
-    from partmanip_tpu_torch.sim import fused
-    nvcc = subprocess.run([fused._find_nvcc(), "--version"], capture_output=True,
+    from partmanip_tpu_torch.utils import cuda_lib
+    nvcc = subprocess.run([cuda_lib.find_nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()[-1]
     emit("device", kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=nvidia_smi_line(),
@@ -210,26 +212,28 @@ def phase_device():
 
 
 def phase_build(scenes):
-    """Compile the kernel of every scene (one nvcc per source, started
-    together) and load the libraries.  Returns the ptxas lines per kernel."""
+    """Compile every kernel (the physics kernel of every scene, B2 and B3;
+    one nvcc per source, all started together) and load the libraries.
+    Returns the ptxas lines per kernel."""
+    from partmanip_tpu_torch.ops import fps, raymarch_cuda
     from partmanip_tpu_torch.sim import fused
-    kernels = [(fused.variant(s), fused._dims(s)) for s in scenes]
+    from partmanip_tpu_torch.utils import cuda_lib
+    libs = [fused.library(fused.variant(s), fused._dims(s)) for s in scenes]
+    libs += [raymarch_cuda.LIBRARY, fps.LIBRARY]
     t0 = time.time()
-    procs = [fused.start_build(*k) for k in kernels]
-    reports = [fused.finish_build(p, *k) for p, k in zip(procs, kernels)]
-    for k in kernels:
-        fused.load_library(*k)
+    procs = [lib.start() for lib in libs]
+    reports = [lib.finish(p) for lib, p in zip(libs, procs)]
+    for lib in libs:
+        lib.load()
     seconds = time.time() - t0
-    ptxas = [[ln.strip() for ln in r.splitlines()
-              if "registers" in ln or "spill" in ln or "stack frame" in ln]
-             for r in reports]
+    ptxas = {lib.name: cuda_lib.ptxas_lines(r) for lib, r in zip(libs, reports)}
     emit("build", seconds=seconds,
-         sources=[fused.KERNEL_SOURCES[v].split("/partmanip_tpu_torch/")[-1]
-                  for v, _ in kernels],
-         flags=fused.NVCC_FLAGS,
-         dims=[dict(zip(("L", "D", "S", "Lo", "Do", "G"), d)) for _, d in kernels],
+         sources=[lib.source.split("/partmanip_tpu_torch/")[-1] for lib in libs],
+         flags=cuda_lib.NVCC_FLAGS,
+         extra_flags={lib.name: lib.extra_flags for lib in libs if lib.extra_flags},
+         defines={lib.name: dict(lib.defines) for lib in libs if lib.defines},
          ptxas=ptxas)
-    return {v: lines for (v, _), lines in zip(kernels, ptxas)}
+    return ptxas
 
 
 def _field_errors(a, b):
@@ -336,15 +340,15 @@ def phase_main_path(path):
     envs, MLP 512-512-512, 200 steps, one eval round, every physics step
     through the path's kernel and none through another."""
     import train_torch
-    from partmanip_tpu_torch.sim import fused
-    fused.reset_launch_counts()
+    from partmanip_tpu_torch.utils import cuda_lib
+    cuda_lib.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     runner = train_torch.main(path.flags + path.main_flags
                               + ["--test_only", "--log.mode", "screen"])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = dict(fused.launch_counts)
+    launches = cuda_lib.launch_counts()
     others = sum(n for v, n in launches.items() if v != path.kernel)
     env, cfg = runner.env, runner.cfg
     T, rounds = env.max_episode_length, cfg["eval_round"]
@@ -474,6 +478,396 @@ def _timed(fn, reps):
     return statistics.median(times)
 
 
+# ----------------------------------------------------------------------
+# the vision path: the point-cloud DAgger student on open_drawer
+# ----------------------------------------------------------------------
+
+VISION_FLAGS = ["--taskcfg", "open_drawer", "--algocfg", "dagger", "--algo.obs_mode",
+                "depth_pc", "--algo.model.network.name", "PointNet",
+                "--algo.teacher", DRAWER_CKPT]
+VISION_ENVS = 16              # cfg/algos/dagger.yaml num_envs
+K_POINTS = 1024
+# kernel B2 vs its plain version: share of pixels within PIXEL_TOL, worst error
+# where both hit (silhouette rays may flip between hit and miss)
+PIXEL_TOL, PIXEL_SHARE, HIT_TOL = 1e-3, 0.999, 1e-2
+SURFACE_TOL = 1e-2            # 10 eps: the renderer's hit test
+VISION_KERNELS = {
+    "b2": dict(name="raymarch_b2", source="partmanip_tpu_torch/csrc/raymarch.cu",
+               replaces="partmanip_tpu/ops/raymarch_tpu.py:241",
+               replaces_function="partmanip_tpu/ops/raymarch_tpu.py:_march_kernel "
+                                 "(:143), launched by _render_tpu (:233)"),
+    "b3": dict(name="fps_b3", source="partmanip_tpu_torch/csrc/fps.cu",
+               replaces="partmanip_tpu/ops/fps.py:80",
+               replaces_function="partmanip_tpu/ops/fps.py:farthest_point_sampling_pallas "
+                                 "(:47), body kernel (:63)"),
+}
+
+
+def make_vision_env(num_envs, device="cuda", im_scale=1):
+    """(env, merged config) of the vision path, built by the entry point's
+    factory after the same ``random.seed`` as :func:`make_env`."""
+    import train_torch
+    from partmanip_tpu_torch.config import process_cfgs
+    cfg, sim_params = process_cfgs(VISION_FLAGS + ["--algo.num_envs", str(num_envs)])
+    cfg["task"]["im_scale"] = im_scale
+    random.seed(0)
+    return train_torch.make_env(cfg, sim_params, device), cfg
+
+
+@torch.no_grad()
+def vision_cases():
+    """Scene primitives at 16 envs: the committed expert's rollout 40 steps
+    in (gripper at the handle) and a reset state."""
+    from partmanip_tpu_torch.envs import vision
+    env, cfg = make_env(PATHS[1], VISION_ENVS)
+    sim40, _ = expert_rollout(env, cfg, 40, seed=5)
+    state, _ = env.reset(env.init_state(env.make_generator(9)))
+    return {"rollout40": vision.scene_prims(env, sim40),
+            "reset": vision.scene_prims(env, state.sim)}
+
+
+def _depth_errors(got, want, far=100.0):
+    err = (got - want).abs()
+    both = (got < far) & (want < far)
+    return {"within_tol": float((err <= PIXEL_TOL).float().mean()),
+            "worst_both_hit": float(err[both].max()) if bool(both.any()) else 0.0,
+            "bit_equal": float((got == want).float().mean()),
+            "hit_share": float((want < far).float().mean()),
+            "hit_flips": int(((got < far) != (want < far)).sum()),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+@torch.no_grad()
+def vision_kernel_check(rig, cases):
+    """B2 against its plain version (exact and coarse-to-fine) on each case
+    at full width; B3 against its plain version on the clouds of those
+    renders and on random clouds with and without a zero cluster.  Returns
+    (B2's worst error where both hit, B3's worst sampled-point error)."""
+    from partmanip_tpu_torch.ops import fps, raymarch, raymarch_cuda, tsdf
+    renders, clouds, failures = {}, {}, []
+    for name, prims in cases.items():
+        for c2f in (False, True):
+            tag = f"{name}_{'c2f' if c2f else 'exact'}"
+            args = (prims, rig.poses, rig.intrinsic, rig.im_h, rig.im_w)
+            got = raymarch_cuda.render_with(raymarch_cuda.march, *args, coarse_to_fine=c2f)
+            want = raymarch_cuda.render_with(raymarch.march_plain, *args, coarse_to_fine=c2f)
+            torch.cuda.synchronize()
+            e = renders[tag] = _depth_errors(got, want)
+            if not (e["within_tol"] >= PIXEL_SHARE and e["worst_both_hit"] <= HIT_TOL
+                    and e["finite"]):
+                failures.append(f"B2 {tag}: {e}")
+            clouds[tag] = tsdf.workspace_points(rig.tsdf_spec, got)
+    B, N, _ = clouds["reset_c2f"].shape
+    rs = np.random.RandomState(4)
+    rand = torch.as_tensor(rs.randn(B, N, 3).astype(np.float32), device="cuda")
+    clouds["random"] = rand
+    zero = torch.as_tensor(rs.rand(B, N) < 0.6, device="cuda")
+    clouds["random_zero_cluster"] = torch.where(zero[..., None], 0.0, rand)
+    sampled, b3_worst = {}, 0.0
+    for tag, pts in clouds.items():
+        got = fps.farthest_point_sampling_cuda(pts, K_POINTS).long()
+        _, want = fps.farthest_point_sampling_plain(pts, K_POINTS)
+        torch.cuda.synchronize()
+        rows = pts.gather(1, got[..., None].expand(-1, -1, 3))
+        ref = pts.gather(1, want[..., None].expand(-1, -1, 3))
+        err = float((rows - ref).abs().max())
+        b3_worst = max(b3_worst, err)
+        sampled[tag] = {"index_match": float((got == want).float().mean()),
+                        "rows_equal": int((got == want).all(dim=1).sum()), "rows": B,
+                        "zero_points": float((pts.abs().sum(-1) == 0).float().mean()),
+                        "max_abs_err": err}
+        if not torch.equal(got, want):
+            failures.append(f"B3 {tag}: {sampled[tag]}")
+    emit("kernel_check", variant="b2+b3", num_envs=B, image=[rig.num_view, rig.im_h, rig.im_w],
+         points=N, k=K_POINTS,
+         tolerances={"pixel": PIXEL_TOL, "pixel_share": PIXEL_SHARE, "both_hit": HIT_TOL,
+                     "fps": "index-exact"},
+         renders=renders, fps=sampled, failures=failures)
+    if failures:
+        raise RuntimeError("kernel_check (b2, b3) failed: " + "; ".join(failures))
+    return max(r["worst_both_hit"] for r in renders.values()), b3_worst
+
+
+@torch.no_grad()
+def vision_small_reference(num_envs=4, steps=3, im_scale=8):
+    """The vision env on the card (kernels) against the plain pipeline on
+    the CPU on the same scene states: reset and a few steps of the expert's
+    f32 policy at ``im_scale`` 8.  For each state the card's ``depth_pc``
+    observation must equal its own pipeline rerun (render, crop, B3) bit for
+    bit, pick the same FPS indices as the CPU pipeline (flips counted), and
+    lie within OBS_TOL of the CPU observation at every point: the scene
+    primitives (forward kinematics) round differently on the two devices,
+    so the points may differ in the last bits (worst seen 1.5e-6)."""
+    from partmanip_tpu_torch.config import process_cfgs
+    from partmanip_tpu_torch.envs import vision
+    from partmanip_tpu_torch.ops import fps, tsdf
+    from partmanip_tpu_torch.utils import convert
+    OBS_TOL = 1e-5
+
+    def cloud(e, sim):
+        rig = e.vision_rig
+        depth = vision.render_depth(rig, vision.scene_prims(e, sim))
+        return tsdf.workspace_points(rig.tsdf_spec, depth)
+
+    def gather(pts, idx):
+        return pts.gather(1, idx[..., None].expand(-1, -1, 3))
+
+    env, _ = make_vision_env(num_envs, "cuda", im_scale)
+    cpu_env, _ = make_vision_env(num_envs, "cpu", im_scale)
+    ppo_cfg, _ = process_cfgs(PATHS[1].flags)
+    ac = expert_policy(env, ppo_cfg, dtype="f32")
+    draws = PATHS[1].draws(np.random.RandomState(3), num_envs)
+    state = env.init_state(env.make_generator(0), draws)
+    state, obs = env.reset(state, draws)
+    flips, worst, nonzero, rerun_equal, finite = [], 0.0, [], True, True
+    for t in range(steps + 1):
+        got = obs["depth_pc"].reshape(num_envs, K_POINTS, 3)
+        pts = cloud(env, state.sim)
+        idx = fps.farthest_point_sampling_cuda(pts, K_POINTS).long()
+        rerun_equal = rerun_equal and torch.equal(gather(pts, idx), got)
+        sim = convert.scene_state_from_numpy(convert.scene_state_to_numpy(state.sim))
+        cpu_pts = cloud(cpu_env, sim)
+        _, cpu_idx = fps.farthest_point_sampling_plain(cpu_pts, K_POINTS)
+        flips.append((idx.cpu() != cpu_idx).sum(1).tolist())
+        err = (got.cpu() - gather(cpu_pts, cpu_idx)).abs()
+        worst = max(worst, float(err.max()))
+        nonzero.append((got.abs().sum(-1) > 0).float().mean(1).tolist())
+        finite = finite and bool(torch.isfinite(got).all()) and bool(torch.isfinite(cpu_pts).all())
+        if t < steps:
+            state, obs, *_ = env.step(state, ac.act(obs["normal_state"]), train=False)
+    n_flips = sum(map(sum, flips))
+    ok = (n_flips == 0 and worst <= OBS_TOL and rerun_equal and finite
+          and tuple(obs["depth_pc"].shape) == (num_envs, 3 * K_POINTS))
+    emit("small_reference", variant="b2+b3", num_envs=num_envs, steps=steps,
+         image=[cpu_env.vision_rig.num_view, cpu_env.vision_rig.im_h,
+                cpu_env.vision_rig.im_w],
+         index_flips_per_env=flips, max_abs_obs_err=worst, obs_equal_to_rerun=rerun_equal,
+         nonzero_share=nonzero, tolerance={"point": OBS_TOL, "index_flips": 0}, ok=ok)
+    if not ok:
+        raise RuntimeError(f"GPU vision obs disagree with the CPU pipeline: {n_flips} "
+                           f"index flips, worst point error {worst}, rerun equal "
+                           f"{rerun_equal}")
+
+
+def vision_main_path():
+    """The DAgger evaluation through the CLI entry point at the YAML's full
+    width: 16 envs, 3 views of 288×512, coarse to fine, 1024 points, the
+    seeded PointNet student, 200 steps, one eval round.  Every render through
+    B2, every FPS through B3, every physics step through B1b."""
+    import train_torch
+    from partmanip_tpu_torch.envs import vision
+    from partmanip_tpu_torch.ops import raymarch
+    from partmanip_tpu_torch.utils import cuda_lib
+    cuda_lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    runner = train_torch.main(VISION_FLAGS + [
+        "--test_only", "--algo.eval_round", "1", "--exp_name", "chip_smoke_dagger_seed3",
+        "--log.mode", "screen"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = cuda_lib.launch_counts()
+    env, cfg, rig = runner.env, runner.cfg, runner.env.vision_rig
+    T, rounds = env.max_episode_length, cfg["eval_round"]
+    n_obs = 1 + rounds * (1 + T)                    # init_state's reset, then each round
+    c2f = rig.coarse_to_fine and rig.im_h % 4 == 0 and rig.im_w % 4 == 0
+    expected = {"b2": n_obs * (2 if c2f else 1), "b3": n_obs,
+                "b1b": 1 + rounds * (1 + T * env.control_freq_inv), "b1a": 0}
+    log = runner.last_log
+    obs = runner.last_obs
+    pts = obs.reshape(env.num_envs, K_POINTS, 3)
+    live = pts.abs().sum(-1) > 0
+    with torch.no_grad():
+        sdf = raymarch.scene_sdf(vision.scene_prims(env, runner.last_env_state.sim), pts)
+    surf = float(sdf.abs()[live].max()) if bool(live.any()) else float("nan")
+    width = (env.num_envs, rig.num_view, rig.im_h, rig.im_w, tuple(obs.shape))
+    succ = log.get("Test/succ_rate_max", float("nan"))
+    emit("main_path", variant="b2+b3+b1b", num_envs=env.num_envs,
+         image=[rig.num_view, rig.im_h, rig.im_w], coarse_to_fine=c2f, k=K_POINTS,
+         steps=T, eval_round=rounds, observations=n_obs, kernel_launches=launches,
+         expected_launches=expected, wall_seconds=wall,
+         env_steps_per_second=rounds * T * env.num_envs / wall,
+         nonzero_share_per_env=live.float().mean(1).tolist(),
+         max_abs_surface_sdf=surf, surface_tol=SURFACE_TOL, succ_rate_max=succ,
+         metrics=log)
+    print(f"Test/succ_rate_max {succ} (vision student, seeded init)", flush=True)
+    if width != (VISION_ENVS, 3, 288, 512, (VISION_ENVS, 3 * K_POINTS)):
+        raise RuntimeError(f"vision main path did not run at full width: {width}")
+    if launches != expected:
+        raise RuntimeError(f"launches {launches}, expected {expected}: not every render, "
+                           f"FPS and physics step went through its kernel")
+    bad = [k for k, v in log.items() if not np.isfinite(v)]
+    if bad or not bool(torch.isfinite(obs).all()) or not log:
+        raise RuntimeError(f"vision main path output not finite: {bad}")
+    if not (bool(live.any()) and surf <= SURFACE_TOL):
+        raise RuntimeError(f"sampled points off the scene surface: |sdf| up to {surf}")
+    return launches
+
+
+def _host_ms(fn, reps=10):
+    """Median host-clock time of ``fn`` ending in a synchronise (ms)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+@torch.no_grad()
+def b2_operations(rig, prims, c2f):
+    """f32 operations of one render, counted from csrc/raymarch.cu with the
+    scene evaluations this input needs (the plain march counts them; a
+    multiply-add counts 2): per evaluation the point (6), every sphere (11),
+    every live box (54: 53 arithmetic operations and the mask test), the
+    ground (1) and the march update (6); per ray its inverse length (6) and
+    the hit select (3)."""
+    from partmanip_tpu_torch.ops import raymarch, raymarch_cuda
+    S = prims.sphere_radius.shape[1]
+    live = (prims.box_mask > 0).sum(1).double()                     # [E]
+    per_eval = 13 + 11 * S + 54 * live                              # [E]
+
+    def ops(dirs, org, t0, steps):
+        _, evals = raymarch.march_plain(prims, dirs, org, t0, steps, 100.0, 1e-3,
+                                        count_evals=True)
+        n = evals.double().sum(dim=(1, 2))                          # [E]
+        return float((n * per_eval).sum()) + 9.0 * evals.numel()
+
+    E = prims.sphere_radius.shape[0]
+    if not c2f:
+        dirs, org = raymarch_cuda.ray_table(rig.poses, rig.intrinsic, rig.im_h, rig.im_w, "cuda")
+        return ops(dirs, org, 0.05, 40)
+    hc, wc = rig.im_h // 4, rig.im_w // 4
+    intr_c = np.asarray(rig.intrinsic, np.float64).copy()
+    intr_c[:2] /= 4.0
+    dc, oc = raymarch_cuda.ray_table(rig.poses, intr_c.astype(np.float32), hc, wc, "cuda")
+    coarse = raymarch.march_plain(prims, dc, oc, 0.05, 40, 100.0, 1e-3)
+    t0 = raymarch_cuda.coarse_start(coarse.reshape(E, -1, hc, wc), 100.0).reshape(E, rig.num_view, -1)
+    dirs, org = raymarch_cuda.ray_table(rig.poses, rig.intrinsic, rig.im_h, rig.im_w, "cuda")
+    return ops(dc, oc, 0.05, 40) + ops(dirs, org, t0.contiguous(), raymarch_cuda.REFINE_STEPS)
+
+
+@torch.no_grad()
+def vision_timing(rig, prims, repeats=20):
+    """B2 per render (coarse to fine, as the main path runs it, and exact)
+    and B3 per call at the main path's shapes, by CUDA events; the plain
+    versions; the bounds."""
+    from partmanip_tpu_torch.ops import fps, raymarch, raymarch_cuda, tsdf
+    from partmanip_tpu_torch.utils import cuda_lib
+    kernel = (raymarch_cuda.march, prims, rig.poses, rig.intrinsic, rig.im_h, rig.im_w)
+    plain = (raymarch.march_plain,) + kernel[1:]
+    render = raymarch_cuda.render_with
+    for _ in range(3):
+        depth = render(*kernel, coarse_to_fine=True)
+    cuda_lib.reset_launch_counts()
+    b2_ms = _timed(lambda: render(*kernel, coarse_to_fine=True), repeats)
+    b2_launches = cuda_lib.launch_counts()["b2"] / repeats
+    b2_exact_ms = _timed(lambda: render(*kernel), repeats)
+    b2_plain_ms = _timed(lambda: render(*plain, coarse_to_fine=True), 3)
+    b2_plain_exact_ms = _timed(lambda: render(*plain), 3)
+    E, V, H, W = depth.shape
+    S, G = prims.sphere_radius.shape[1], prims.box_pos.shape[1]
+    ops_c2f, ops_exact = b2_operations(rig, prims, True), b2_operations(rig, prims, False)
+    n_c, n = E * V * (H // 4) * (W // 4), E * V * H * W
+    prim_bytes = E * (4 * S + 11 * G) * 4
+    # coarse launch: prims, rays, image out; refine: prims, rays, t0 in, image out
+    bytes_c2f = 2 * prim_bytes + (3 * V * H * W // 16 + n_c) * 4 + (3 * V * H * W + 2 * n) * 4
+    bytes_exact = prim_bytes + (3 * V * H * W + n) * 4
+
+    pts = tsdf.workspace_points(rig.tsdf_spec, depth)
+    for _ in range(2):
+        fps.farthest_point_sampling_cuda(pts, K_POINTS)
+    cuda_lib.reset_launch_counts()
+    b3_ms = _timed(lambda: fps.farthest_point_sampling_cuda(pts, K_POINTS), repeats)
+    b3_launches = cuda_lib.launch_counts()["b3"] / repeats
+    b3_plain_ms = _timed(lambda: fps.farthest_point_sampling_plain(pts, K_POINTS), 3)
+    B, N, _ = pts.shape
+    ops_b3 = 8.0 * K_POINTS * N * B
+    bytes_b3 = B * N * 12 + B * K_POINTS * 4
+
+    def bound(ops, nbytes):
+        o, b = ops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        return {"bound_ms": max(o, b), "bound_by": "operations" if o >= b else "bytes",
+                "bound_operations_ms": o, "bound_bytes_ms": b, "operations": ops,
+                "bytes": nbytes}
+
+    b2 = {"ms": b2_ms, "exact_ms": b2_exact_ms, "plain_ms": b2_plain_ms,
+          "plain_exact_ms": b2_plain_exact_ms, "library_ms": None,
+          "launches_per_render": b2_launches, **bound(ops_c2f, bytes_c2f),
+          "exact": bound(ops_exact, bytes_exact), "rays": n, "spheres": S, "boxes": G,
+          "live_boxes_mean": float((prims.box_mask > 0).sum(1).float().mean())}
+    b3 = {"ms": b3_ms, "plain_ms": b3_plain_ms, "library_ms": None, "batch": B,
+          "points": N, "k": K_POINTS, "zero_points": float((pts.abs().sum(-1) == 0).float().mean()),
+          "launches_per_call": b3_launches, "grid_blocks": B,
+          **bound(ops_b3, bytes_b3)}
+    emit("timing", variant="b2", **b2)
+    emit("timing", variant="b3", **b3)
+    return b2, b3
+
+
+@torch.no_grad()
+def vision_step_breakdown(num_envs=VISION_ENVS, reps=10):
+    """One DAgger evaluation step at full width taken apart (host clock,
+    each part ending in a synchronise): physics and state observation
+    (``env.step`` without the camera), scene primitives (FK), the
+    coarse-to-fine render (B2), unprojection and crop, FPS (B3) and the
+    PointNet student."""
+    from partmanip_tpu_torch.envs import vision
+    from partmanip_tpu_torch.models.actor_critic import ActorCritic
+    from partmanip_tpu_torch.ops import fps, tsdf
+    env, cfg = make_vision_env(num_envs)
+    rig = env.vision_rig
+    student = ActorCritic(env.num_obs["depth_pc"], env.num_actions, cfg["algo"]["model"]).to("cuda")
+    student.init(3)
+    state, obs = env.reset(env.init_state(env.make_generator(4)))
+    o = obs["depth_pc"]
+    act = student.act(o)
+    step_ms = _host_ms(lambda: env.step(state, act, train=False), reps)
+    env.vision_rig = None
+    physics_ms = _host_ms(lambda: env.step(state, act, train=False), reps)
+    env.vision_rig = rig
+    prims = vision.scene_prims(env, state.sim)
+    prims_ms = _host_ms(lambda: vision.scene_prims(env, state.sim), reps)
+    depth = vision.render_depth(rig, prims)
+    render_ms = _host_ms(lambda: vision.render_depth(rig, prims), reps)
+    pts = tsdf.workspace_points(rig.tsdf_spec, depth)
+    unproject_ms = _host_ms(lambda: tsdf.workspace_points(rig.tsdf_spec, depth), reps)
+    fps_ms = _host_ms(lambda: fps.farthest_point_sampling(pts, K_POINTS), reps)
+    policy_ms = _host_ms(lambda: student.act(o), reps)
+    parts = {"physics_and_state_obs_ms": physics_ms, "scene_prims_ms": prims_ms,
+             "render_b2_ms": render_ms, "unproject_crop_ms": unproject_ms,
+             "fps_b3_ms": fps_ms, "pointnet_ms": policy_ms}
+    emit("step_breakdown", num_envs=num_envs, env_step_ms=step_ms,
+         policy_plus_step_ms=step_ms + policy_ms, parts=parts,
+         parts_sum_ms=sum(parts.values()))
+    return parts
+
+
+def run_vision_path(phases, ptxas):
+    """Every phase of the vision path; returns its two entries of the
+    ``kernels`` line."""
+    from partmanip_tpu_torch.config import process_cfgs
+    from partmanip_tpu_torch.envs import vision
+    cfg, _ = process_cfgs(VISION_FLAGS)
+    rig = vision.VisionRig(cfg["task"]["cam"], cfg["task"]["obs_mode"]["tsdf"], "depth_pc")
+    worst, launches, timing = {}, {}, {"b2": {}, "b3": {}}
+    cases = vision_cases() if ("kernel_check" in phases or "timing" in phases) else None
+    if "kernel_check" in phases:
+        worst["b2"], worst["b3"] = vision_kernel_check(rig, cases)
+    if "small_reference" in phases:
+        vision_small_reference()
+    if "main_path" in phases:
+        launches = vision_main_path()
+    if "timing" in phases:
+        timing["b2"], timing["b3"] = vision_timing(rig, cases["rollout40"])
+        vision_step_breakdown()
+    return [{**VISION_KERNELS[k], "route": "cuda", "launches": launches.get(k),
+             "max_abs_err": worst.get(k), "ptxas": ptxas[k], **timing[k]}
+            for k in ("b2", "b3")]
+
+
 PHASES = ("kernel_check", "small_reference", "main_path", "timing")
 
 
@@ -506,6 +900,7 @@ def main(argv=None):
                         "replaces_function": path.replaces_function,
                         "launches": launches, "max_abs_err": worst,
                         "ptxas": ptxas[path.kernel], **timing})
+    kernels += run_vision_path(args.only, ptxas)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

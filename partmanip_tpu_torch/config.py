@@ -8,8 +8,8 @@ default, types frozen by the YAML value, lists take nargs); and the same
 cross-section key copying wires task↔algo settings.
 
 Only the configs of the ported slices are shipped (``tasks/grasp_cube``,
-``tasks/open_drawer``, ``algos/ppo``); asking for another one raises
-``NotImplementedError``.
+``tasks/open_drawer``, ``algos/ppo``, ``algos/dagger``); asking for another
+one (``algos/bc``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -89,7 +89,7 @@ def process_cfgs(argv=None, cfg_root: str = None):
         if not os.path.exists(pjoin(cfg_root, kind, f"{name}.yaml")):
             raise NotImplementedError(
                 f"config {kind}/{name}.yaml is not ported yet (see ROADMAP "
-                f"Queue A: BC/DAgger)")
+                f"Queue A: BC / DAgger training)")
 
     with open(pjoin(cfg_root, "base.yaml")) as f:
         cfg = yaml.safe_load(f)

@@ -54,13 +54,13 @@ class GraspCubeEnv:
         self.add_proprio_obs = cfg.get("add_proprio_obs", False)
         if self.learn_input_mode not in STATE_OBS_MODES:
             raise NotImplementedError(
-                f"obs_mode {self.learn_input_mode!r}: the vision observation "
-                f"stack is not ported yet (ROADMAP Queue A: renderer, TSDF / "
-                f"point clouds)")
+                f"obs_mode {self.learn_input_mode!r}: grasp_cube's vision "
+                f"observations are not ported yet; the renderer serves "
+                f"open_drawer only (ROADMAP Queue A: remaining vision modes)")
         if cfg.get("save_video"):
             raise NotImplementedError(
-                "save_video needs the renderer, which is not ported yet "
-                "(ROADMAP Queue A: renderer)")
+                "save_video needs the RGB renderer, which is not ported yet "
+                "(ROADMAP Queue A: remaining vision modes)")
 
         rcfg = cfg["robot"]
         mobile = "mobile" in rcfg["assetFile"]

@@ -20,8 +20,11 @@ observation modes:
 * random reset ±0.05 m xyz, yaw quat (sin a, cos a) with a ∈ ±π/12.
 
 Every cabinet joint is simulated; only the per-env target dof feeds
-reward/obs.  The vision observation modes, mesh-handle assets and
-``scene_pose`` are not ported yet and raise ``NotImplementedError``.
+reward/obs.  Of the vision observation modes, ``depth_pc`` is ported
+(:mod:`vision`: the rig is built by ``_init_vision``, the observation added
+by ``_vision_obs`` after every reset and step); the other vision modes,
+mesh-handle assets and ``scene_pose`` are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from ..ops import rotations as rot
 from ..sim import builder, contact as contact_lib
 from ..sim import engine, franka, kinematics
 from ..sim.types import BoxGeoms, SimParams, TreeState, to_device
-from . import assets, base, control
+from . import assets, base, control, vision
 from .base import STATE_OBS_MODES, EnvState, resolve_device
 
 SUC_PROP = 0.5
@@ -63,14 +66,11 @@ class OpenDrawerEnv:
         self.add_proprio_obs = cfg.get("add_proprio_obs", False)
         self.obj_scale = cfg["asset"].get("obj_scale", 0.5)
         if self.learn_input_mode not in STATE_OBS_MODES:
-            raise NotImplementedError(
-                f"obs_mode {self.learn_input_mode!r}: the vision observation "
-                f"stack is not ported yet (ROADMAP Queue A: renderer, TSDF / "
-                f"point clouds)")
+            vision.check_mode(self.learn_input_mode)
         if cfg.get("save_video"):
             raise NotImplementedError(
-                "save_video needs the renderer, which is not ported yet "
-                "(ROADMAP Queue A: renderer)")
+                "save_video needs the RGB renderer, which is not ported yet "
+                "(ROADMAP Queue A: remaining vision modes)")
         if cfg["asset"].get("mesh_handle", False):
             raise NotImplementedError(
                 "asset.mesh_handle=True needs baked-SDF mesh collision, which "
@@ -155,6 +155,7 @@ class OpenDrawerEnv:
         self.default_dof = np.asarray(rcfg["dof"], np.float32)
         self.default_root = np.asarray(rcfg["root"], np.float32)
         self.num_obs = dict(cfg["obs_mode"])
+        self._init_vision(cfg)
 
         def dev(x, dtype=torch.float32):
             return torch.as_tensor(np.asarray(x), dtype=dtype,
@@ -171,6 +172,29 @@ class OpenDrawerEnv:
         self._joint_lower_t = dev(self.joint_lower)
         self._joint_upper_t = dev(self.joint_upper)
         self._obj_ids_t = dev(obj_ids, torch.int64)
+
+    def _init_vision(self, cfg):
+        """Vision rig + flattened obs sizes (≙ the JAX env's
+        ``_init_vision``; the TSDF modes' volume sizes come with those
+        modes)."""
+        mode = self.learn_input_mode
+        self.vision_rig = None
+        if mode not in STATE_OBS_MODES:
+            self.vision_rig = vision.VisionRig(
+                cfg["cam"], cfg["obs_mode"]["tsdf"], mode,
+                im_scale=cfg.get("im_scale", 1))
+        if self.add_proprio_obs and mode in self.num_obs \
+                and mode != "proprio_state":
+            self.num_obs[mode] += self.num_obs["proprio_state"]
+
+    def _vision_obs(self, state: EnvState, obs: Dict):
+        if self.vision_rig is None:
+            return obs
+        obs.update(vision.render_obs(self, self.vision_rig, state.sim))
+        if self.add_proprio_obs and "proprio_state" in obs:
+            m = self.learn_input_mode
+            obs[m] = torch.cat([obs[m], obs["proprio_state"]], dim=-1)
+        return obs
 
     # ------------------------------------------------------------------
     # state init / reset
@@ -250,6 +274,7 @@ class OpenDrawerEnv:
         st = base.init_env_state(sim, E, state.rng)
         st = st._replace(task_state=state.task_state)
         obs, _, _ = self._observations(st)
+        obs = self._vision_obs(st, obs)
         return st, obs
 
     def scene_pose(self, state: EnvState):
@@ -400,6 +425,7 @@ class OpenDrawerEnv:
                                task_state=task_state)
 
         obs, view, part_bbox = self._observations(state)
+        obs = self._vision_obs(state, obs)
         rew, success, succ_objid, extras = self._reward(
             state, view, part_bbox, actions)
         extras.update(pre_extras)

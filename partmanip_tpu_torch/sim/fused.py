@@ -8,7 +8,8 @@ variants become two kernels here).  The kernel sources are
 ``csrc/fused_inner_step.cu`` (B1a) and ``csrc/fused_inner_step_obj.cu``
 (B1b), sharing ``csrc/fused_common.cuh``; each is compiled with ``nvcc`` for
 ``sm_90a`` at first use into a shared library with a plain C interface,
-keyed on every compile-time size, and loaded with ``ctypes``.  Nothing here
+keyed on every compile-time size, and loaded with ``ctypes``
+(``utils/cuda_lib.py``, shared by every kernel of the port).  Nothing here
 needs ``nvcc`` or a GPU at import time.
 
 * :func:`fused_physics_step` — what ``engine.physics_step`` calls: all
@@ -38,121 +39,43 @@ from __future__ import annotations
 import ctypes
 import math
 import os
-import shutil
-import subprocess
 
 import numpy as np
 import torch
 
+from ..utils import cuda_lib
 from . import contact, dynamics, engine
 from .types import FreeBodyState, HostCache, TreeState
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc")
-KERNEL_SOURCE = os.path.join(CSRC, "fused_inner_step.cu")          # B1a
-KERNEL_SOURCE_OBJ = os.path.join(CSRC, "fused_inner_step_obj.cu")  # B1b
+KERNEL_SOURCE = os.path.join(cuda_lib.CSRC, "fused_inner_step.cu")          # B1a
+KERNEL_SOURCE_OBJ = os.path.join(cuda_lib.CSRC, "fused_inner_step_obj.cu")  # B1b
 KERNEL_SOURCES = {"b1a": KERNEL_SOURCE, "b1b": KERNEL_SOURCE_OBJ}
-# <checkout>/build, listed in .gitignore
-BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "build")
-
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Number of kernel launches made by this module since import / the last
 # reset, per variant.
-launch_counts = {"b1a": 0, "b1b": 0}
+launch_counts = cuda_lib.launch_counter("b1a", "b1b")
 
-_LIBS = {}            # (variant, compile-time sizes) -> loaded library
 _PACKED = HostCache()  # scene.robot.parent tensor -> {key, packed Spec, ...}
 _UPLOADED = {}        # (variant, sizes) -> id of the packed spec in constant memory
 
 
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-
-
-def _find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                            "bin", "nvcc")
-        if os.path.exists(cand):
-            nvcc = cand
-    if nvcc is None:
-        raise RuntimeError(
-            "nvcc not found: the fused inner-step kernel is compiled at first "
-            "use and needs the CUDA toolkit (PATH or CUDA_HOME)")
-    return nvcc
-
-
-def library_path(variant: str, dims) -> str:
-    names = ("L", "D", "S", "Lo", "Do", "G")
-    tag = "_".join(f"{n}{int(d)}" for n, d in zip(names, dims))
-    stem = os.path.splitext(os.path.basename(KERNEL_SOURCES[variant]))[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}_{tag}.so")
-
-
-def build_command(variant: str, dims):
-    """The nvcc command line that builds ``variant`` for these array sizes
-    (every compile-time size is in the library's name)."""
-    macros = ("FIS_L", "FIS_D", "FIS_S", "FIS_LO", "FIS_DO", "FIS_G")
-    return [_find_nvcc(), *NVCC_FLAGS,
-            *[f"-D{m}={int(d)}" for m, d in zip(macros, dims)],
-            "-o", library_path(variant, dims), KERNEL_SOURCES[variant]]
-
-
-def start_build(variant: str, dims) -> subprocess.Popen:
-    """Start nvcc without waiting (so several sources can build side by
-    side); hand the process to :func:`finish_build`."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    return subprocess.Popen(build_command(variant, dims), stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-
-
-def finish_build(proc: subprocess.Popen, variant: str, dims) -> str:
-    """Wait for nvcc, keep its report (registers, spills) beside the
-    library, raise if it failed.  Returns the report."""
-    report, _ = proc.communicate()
-    with open(library_path(variant, dims) + ".ptxas.txt", "w") as f:
-        f.write(report)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{report}")
-    return report
-
-
-def load_library(variant: str, dims):
-    """Build (when the library is not there yet) and load ``variant`` for
-    these array sizes."""
+def library(variant: str, dims) -> cuda_lib.Library:
+    """``variant``'s kernel library for these array sizes (every
+    compile-time size is a macro and is in the library's name)."""
     dims = tuple(int(d) for d in dims)
-    key = (variant, dims)
-    if key in _LIBS:
-        return _LIBS[key]
-    path = library_path(variant, dims)
-    if not os.path.exists(path):
-        finish_build(start_build(variant, dims), variant, dims)
-    lib = ctypes.CDLL(path)
-    lib.fis_spec_bytes.restype = ctypes.c_int
-    lib.fis_state_rows.restype = ctypes.c_int
-    lib.fis_dims.argtypes = [ctypes.c_int]
-    lib.fis_dims.restype = ctypes.c_int
-    lib.fis_set_spec.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    lib.fis_set_spec.restype = ctypes.c_int
+    tag = "_".join(f"{n}{d}" for n, d in zip(("L", "D", "S", "Lo", "Do", "G"), dims))
+    stem = os.path.splitext(os.path.basename(KERNEL_SOURCES[variant]))[0]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    sig = {"fis_spec_bytes": ((), i32), "fis_state_rows": ((), i32),
+           "fis_dims": ((i32,), i32), "fis_set_spec": ((ptr, i32, ptr), i32)}
     if variant == "b1a":
-        lib.fis_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
+        sig["fis_launch"] = ((ptr, ptr, ptr, ptr, i32, i32, ptr), i32)
     else:
-        lib.fis_obj_bytes.restype = ctypes.c_int
-        lib.fis_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                   ptr]
-    lib.fis_launch.restype = ctypes.c_int
-    got = tuple(lib.fis_dims(i) for i in range(len(dims)))
-    if got != dims:
-        raise RuntimeError(f"{path} was built for sizes {got}, not {dims}")
-    _LIBS[key] = lib
-    return lib
+        sig["fis_obj_bytes"] = ((), i32)
+        sig["fis_launch"] = ((ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr), i32)
+    macros = ("FIS_L", "FIS_D", "FIS_S", "FIS_LO", "FIS_DO", "FIS_G")
+    return cuda_lib.Library(variant, KERNEL_SOURCES[variant], f"lib{stem}_{tag}.so",
+                            sig, defines=zip(macros, dims))
 
 
 # ----------------------------------------------------------------------
@@ -447,7 +370,10 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
         raise ValueError("state buffers must be contiguous")
     check_scene(scene)
 
-    lib = load_library(kind, dims)
+    lib = library(kind, dims).load()
+    got = tuple(lib.fis_dims(i) for i in range(len(dims)))
+    if got != tuple(dims):
+        raise RuntimeError(f"{kind} library was built for sizes {got}, not {dims}")
     packed = _packed(scene)
     spec = packed["spec"]
     if spec.nbytes != lib.fis_spec_bytes() or rows != lib.fis_state_rows():
@@ -486,8 +412,7 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
                                  anc_out.data_ptr(), table_t.data_ptr(),
                                  ids_t.data_ptr(), table_t.shape[0], E,
                                  int(n_steps), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_inner_step ({kind}) launch failed: CUDA error {err}")
+    cuda_lib.check_launch(err, f"fused_inner_step ({kind})")
     launch_counts[kind] += 1
     return out, anc_out
 

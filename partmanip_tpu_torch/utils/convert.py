@@ -5,7 +5,9 @@ them over here (``utils/checkpoint.load_jax`` does so for its checkpoints
 without importing JAX):
 
 * :func:`actor_critic_from_jax` — the flax parameter tree of ``ACParams`` →
-  a ``state_dict`` for :class:`models.actor_critic.ActorCritic`;
+  a ``state_dict`` for :class:`models.actor_critic.ActorCritic`, for either
+  network kind (``MLP``; ``PointNet``, whose flax layers ``Dense_0..Dense_5``
+  are the three per-point layers, the two after the pool and the head);
 * :func:`rms_from_jax` — ``{"n", "mean", "S"}`` → ``RMSState``;
 * :func:`scene_state_from_numpy` / :func:`env_state_from_numpy` (and their
   ``*_to_numpy`` inverses) — states given as ``[E, ...]`` numpy arrays (the
@@ -27,28 +29,37 @@ from ..sim.engine import SceneState
 from ..sim.types import FreeBodyState, TreeState
 
 
-def _mlp_from_flax(tree: dict, prefix: str) -> Dict[str, torch.Tensor]:
+def _dense_from_flax(tree: dict, prefix: str, network: str) -> Dict[str, torch.Tensor]:
     """``{"params": {"Dense_i": {"kernel" [in, out], "bias"}}}`` → entries
-    ``<prefix>.hidden.i.weight [out, in]`` …; the last Dense is the head."""
+    ``<prefix>.<layer>.weight [out, in]`` …: for an MLP ``hidden.i`` and the
+    last Dense the head; for a PointNet ``point.0-2``, ``hidden.0-1``,
+    ``head``."""
     layers = tree["params"] if "params" in tree else tree
     names = sorted(layers, key=lambda n: int(n.rsplit("_", 1)[1]))
+    if network == "MLP":
+        dst = [f"hidden.{i}" for i in range(len(names) - 1)] + ["head"]
+    elif network == "PointNet":
+        dst = ["point.0", "point.1", "point.2", "hidden.0", "hidden.1", "head"]
+    else:
+        raise NotImplementedError(f"no converter for network {network!r}")
+    if len(dst) != len(names):
+        raise ValueError(f"{network} has {len(dst)} dense layers, the tree {len(names)}")
     out = {}
-    for i, name in enumerate(names):
-        dst = (f"{prefix}.head" if i == len(names) - 1
-               else f"{prefix}.hidden.{i}")
+    for d, name in zip(dst, names):
         kernel = np.asarray(layers[name]["kernel"], np.float32)
-        out[f"{dst}.weight"] = torch.from_numpy(np.array(kernel.T, order="C"))
-        out[f"{dst}.bias"] = torch.from_numpy(
+        out[f"{prefix}.{d}.weight"] = torch.from_numpy(np.array(kernel.T, order="C"))
+        out[f"{prefix}.{d}.bias"] = torch.from_numpy(
             np.array(layers[name]["bias"], np.float32))
     return out
 
 
-def actor_critic_from_jax(np_tree: dict) -> Dict[str, torch.Tensor]:
+def actor_critic_from_jax(np_tree: dict, network: str = "MLP") -> Dict[str, torch.Tensor]:
     """``{"actor": {"params": {...}}, "critic": {...}, "log_std"}`` (numpy
-    leaves) → ``ActorCritic.load_state_dict`` input."""
+    leaves) of a ``network`` (``MLP`` or ``PointNet``) actor-critic →
+    ``ActorCritic.load_state_dict`` input."""
     sd = {"log_std": torch.from_numpy(np.array(np_tree["log_std"], np.float32))}
-    sd.update(_mlp_from_flax(np_tree["actor"], "actor"))
-    sd.update(_mlp_from_flax(np_tree["critic"], "critic"))
+    sd.update(_dense_from_flax(np_tree["actor"], "actor", network))
+    sd.update(_dense_from_flax(np_tree["critic"], "critic", network))
     return sd
 
 

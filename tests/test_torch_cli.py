@@ -69,11 +69,18 @@ def test_cli_resumes_the_ports_checkpoint(tmp_path):
         train_torch.main(_main_args(tmp_path, "--test_only", "--resume", path))
 
 
+TEACHER = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "artifacts", "open_drawer_ppo", "expert_r3c_seed389",
+                       "model_30000.ckpt")
+
+
 @pytest.mark.parametrize("extra,roadmap_item", [
     ((), "PPO train iteration"),
     (("--test_only", "--taskcfg", "open_drawer", "--task.asset.mesh_handle"),
      "mesh collision"),
-    (("--test_only", "--algocfg", "dagger"), "BC/DAgger"),
+    (("--taskcfg", "open_drawer", "--algocfg", "dagger", "--algo.obs_mode", "depth_pc",
+      "--algo.model.network.name", "PointNet", "--algo.teacher", TEACHER,
+      "--task.asset.assetRoot", "{tmp}"), "BC / DAgger training"),
     (("--test_only", "--algo.obs_mode", "depth_pc"), "renderer"),
     (("--test_only", "--save_pose"), "tooling"),
     (("--test_only", "--save_video"), "renderer"),
@@ -82,6 +89,6 @@ def test_cli_resumes_the_ports_checkpoint(tmp_path):
 ], ids=["train", "open_drawer", "dagger", "vision_obs", "save_pose",
         "save_video", "multi_gpu", "coriolis"])
 def test_unported_parts_raise_naming_the_roadmap(tmp_path, extra, roadmap_item):
-    args = _main_args(tmp_path) + list(extra)
+    args = _main_args(tmp_path) + [a.format(tmp=tmp_path) for a in extra]
     with pytest.raises(NotImplementedError, match=roadmap_item):
         train_torch.main(args)

@@ -20,7 +20,7 @@ import torch
 from partmanip_tpu.sim import engine as jengine
 from partmanip_tpu_torch.sim import engine as tengine
 from partmanip_tpu_torch.sim import fused
-from partmanip_tpu_torch.utils import contact_states, convert
+from partmanip_tpu_torch.utils import contact_states, convert, cuda_lib
 
 import _torch_port as tp
 
@@ -112,9 +112,11 @@ def test_cpu_state_never_touches_the_build(envs, monkeypatch):
 
     def boom(*a, **k):
         raise AssertionError("the kernel library was asked for on the CPU")
-    for name in ("load_library", "start_build", "_find_nvcc", "launch_packed"):
-        monkeypatch.setattr(fused, name, boom)
-    fused.reset_launch_counts()
+    for name in ("load", "start"):
+        monkeypatch.setattr(cuda_lib.Library, name, boom)
+    monkeypatch.setattr(cuda_lib, "find_nvcc", boom)
+    monkeypatch.setattr(fused, "launch_packed", boom)
+    cuda_lib.reset_launch_counts()
     sim = tenv._default_sim(E)
     targets = torch.as_tensor(np.tile(tenv.default_dof, (E, 1)))
     out = tengine.physics_step(tenv.scene, sim, targets)

@@ -16,7 +16,7 @@ import torch
 from partmanip_tpu_torch.config import process_cfgs
 from partmanip_tpu_torch.envs.open_drawer import OpenDrawerEnv
 from partmanip_tpu_torch.sim import engine, fused
-from partmanip_tpu_torch.utils import contact_states, convert
+from partmanip_tpu_torch.utils import contact_states, convert, cuda_lib
 
 E = 8
 
@@ -113,18 +113,18 @@ def test_state_rows_match_the_kernel_enum(denv):
 
 
 def test_build_is_keyed_on_every_size(monkeypatch):
-    monkeypatch.setattr(fused, "_find_nvcc", lambda: "nvcc")
-    cmd = fused.build_command("b1b", (16, 12, 18, 9, 4, 25))
+    monkeypatch.setattr(cuda_lib, "find_nvcc", lambda: "nvcc")
+    cmd = fused.library("b1b", (16, 12, 18, 9, 4, 25)).command()
     for flag in ("-DFIS_L=16", "-DFIS_D=12", "-DFIS_S=18", "-DFIS_LO=9",
                  "-DFIS_DO=4", "-DFIS_G=25", "arch=compute_90a,code=sm_90a"):
         assert flag in cmd
     assert not any("fast" in c for c in cmd)
     assert cmd[-1] == fused.KERNEL_SOURCE_OBJ and os.path.exists(cmd[-1])
-    assert fused.library_path("b1b", (16, 12, 18, 9, 4, 25)).endswith(
+    assert fused.library("b1b", (16, 12, 18, 9, 4, 25)).path.endswith(
         "libfused_inner_step_obj_L16_D12_S18_Lo9_Do4_G25.so")
-    assert fused.library_path("b1b", (16, 12, 18, 9, 4, 24)) != fused.library_path(
-        "b1b", (16, 12, 18, 9, 4, 25))
-    assert fused.library_path("b1a", (13, 9, 18)).endswith(
+    assert fused.library("b1b", (16, 12, 18, 9, 4, 24)).path != fused.library(
+        "b1b", (16, 12, 18, 9, 4, 25)).path
+    assert fused.library("b1a", (13, 9, 18)).path.endswith(
         "libfused_inner_step_L13_D9_S18.so")
 
 
@@ -152,9 +152,11 @@ def test_cpu_state_never_touches_the_build(denv, monkeypatch):
     builds, loads nor launches; launch_packed refuses CPU tensors."""
     def boom(*a, **k):
         raise AssertionError("the kernel library was asked for on the CPU")
-    for name in ("load_library", "start_build", "_find_nvcc", "launch_packed"):
-        monkeypatch.setattr(fused, name, boom)
-    fused.reset_launch_counts()
+    for name in ("load", "start"):
+        monkeypatch.setattr(cuda_lib.Library, name, boom)
+    monkeypatch.setattr(cuda_lib, "find_nvcc", boom)
+    monkeypatch.setattr(fused, "launch_packed", boom)
+    cuda_lib.reset_launch_counts()
     sim = denv._default_sim(E)
     targets = torch.as_tensor(np.tile(denv.default_dof, (E, 1)))
     out = engine.physics_step(denv.scene, sim, targets)

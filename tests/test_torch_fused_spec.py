@@ -14,6 +14,7 @@ from partmanip_tpu_torch.config import process_cfgs
 from partmanip_tpu_torch.envs.grasp_cube import GraspCubeEnv
 from partmanip_tpu_torch.sim import contact as tcontact
 from partmanip_tpu_torch.sim import fused
+from partmanip_tpu_torch.utils import cuda_lib
 
 E = 8
 
@@ -80,8 +81,8 @@ def test_state_rows_match_the_kernel_enum(tenv):
 def test_build_command_targets_hopper(monkeypatch):
     """The command line the GPU host runs: sm_90a, no fast-math, only the
     port's own source."""
-    monkeypatch.setattr(fused, "_find_nvcc", lambda: "nvcc")
-    cmd = fused.build_command("b1a", (13, 9, 18))
+    monkeypatch.setattr(cuda_lib, "find_nvcc", lambda: "nvcc")
+    cmd = fused.library("b1a", (13, 9, 18)).command()
     assert "arch=compute_90a,code=sm_90a" in cmd and "-O3" in cmd
     assert not any("fast" in c for c in cmd)
     assert cmd[-1] == fused.KERNEL_SOURCE and os.path.exists(cmd[-1])

@@ -42,16 +42,47 @@ def test_fresh_interpreter_imports_no_jax():
     assert lines["BANNED"] == "[]", lines["BANNED"]
 
 
+# modules of the port whose counterpart has another name
+COUNTERPARTS = {"partmanip_tpu_torch.ops.raymarch_cuda": "partmanip_tpu.ops.raymarch_tpu"}
+
+
 def test_every_subpackage_has_its_counterpart_layout():
     mods = _port_modules()
     for sub in ("ops", "sim", "envs", "models", "algos", "utils"):
         assert f"partmanip_tpu_torch.{sub}" in mods
+    for name in ("ops.raymarch", "ops.raymarch_cuda", "ops.fps", "ops.tsdf",
+                 "envs.vision", "utils.camera", "utils.cuda_lib", "algos.dagger"):
+        assert f"partmanip_tpu_torch.{name}" in mods, name
     for name in mods:
-        if name.endswith((".contact_states", ".convert")):
+        if name.endswith((".contact_states", ".convert", ".cuda_lib")):
             continue                         # the port's own helpers
+        name = COUNTERPARTS.get(name, name)
         rel = name.replace("partmanip_tpu_torch", "partmanip_tpu").replace(".", "/")
         assert (os.path.exists(os.path.join(ROOT, rel + ".py"))
                 or os.path.isdir(os.path.join(ROOT, rel))), name
+
+
+KERNEL_REGISTRY = r"""
+import train_torch, chip_smoke
+from partmanip_tpu_torch.ops import fps, raymarch, raymarch_cuda, tsdf
+from partmanip_tpu_torch.envs import vision
+from partmanip_tpu_torch.sim import fused
+from partmanip_tpu_torch.utils import cuda_lib
+print("COUNTS", sorted(cuda_lib.launch_counts().items()))
+print("LIBS", len(cuda_lib._LIBS))
+"""
+
+
+def test_every_kernel_registers_its_count_and_builds_nothing_at_import():
+    """B1a, B1b, B2 and B3 count their launches through the shared helper;
+    importing the port (without nvcc on the PATH) loads no kernel."""
+    env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME="/nonexistent")
+    out = subprocess.run([sys.executable, "-c", KERNEL_REGISTRY], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = dict(ln.split(" ", 1) for ln in out.stdout.strip().splitlines())
+    assert lines["COUNTS"] == str([("b1a", 0), ("b1b", 0), ("b2", 0), ("b3", 0)])
+    assert lines["LIBS"] == "0"
 
 
 def test_port_sources_never_name_jax_imports():

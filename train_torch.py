@@ -5,9 +5,14 @@ Usage:
     python train_torch.py --taskcfg open_drawer --algocfg ppo --test_only \
         --algo.tricks.use_state_norm \
         --resume artifacts/open_drawer_ppo/expert_r3c_seed389/model_30000.ckpt
+    python train_torch.py --taskcfg open_drawer --algocfg dagger --test_only \
+        --algo.obs_mode depth_pc --algo.model.network.name PointNet \
+        --algo.teacher artifacts/open_drawer_ppo/expert_r3c_seed389/model_30000.ckpt
 Every YAML key is exposed as a dotted CLI flag (see
 partmanip_tpu_torch/config.py).  Runs on the GPU; ``--device cpu`` runs the
-plain PyTorch path on the CPU instead.
+plain PyTorch path on the CPU instead.  ``--im_scale N`` divides the
+288×512 depth cameras of the volumetric vision modes by N (the JAX package
+sets ``cfg["task"]["im_scale"]`` in its tests; it is no YAML key).
 """
 
 import os
@@ -56,8 +61,12 @@ def make_runner(env, cfg, logger):
     if name == "ppo":
         from partmanip_tpu_torch.algos.ppo import PPO
         return PPO(env, cfg["algo"], logger)
+    if name == "dagger":
+        from partmanip_tpu_torch.algos.dagger import DAgger
+        return DAgger(env, cfg["algo"], logger)
     raise NotImplementedError(
-        f"algo {name!r} is not ported yet (ROADMAP Queue A: vision student)")
+        f"algo {name!r} is not ported yet (ROADMAP Queue A: BC / DAgger "
+        f"training)")
 
 
 def main(argv=None):
@@ -65,9 +74,11 @@ def main(argv=None):
     the evaluation metrics)."""
     dev_parser = ArgumentParser(add_help=False)
     dev_parser.add_argument("--device", default="cuda")
+    dev_parser.add_argument("--im_scale", type=int, default=1)
     dargs, rest = dev_parser.parse_known_args(argv)
 
     cfg, sim_params = process_cfgs(rest)
+    cfg["task"]["im_scale"] = dargs.im_scale
     cfg["seed"], cfg["exp_name"] = set_seed(
         cfg["seed"], cfg["exp_name"], cfg.get("resume"))
     logger = Logger(cfg=cfg, exp_name=cfg["exp_name"],
