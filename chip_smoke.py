@@ -5,24 +5,29 @@ kernels.
 
     python3 chip_smoke.py            # needs one NVIDIA GPU and nvcc
 
-Three paths: the grasp_cube evaluation rollout (kernel B1a, robot + free
+Four paths: the grasp_cube evaluation rollout (kernel B1a, robot + free
 cube), the open_drawer evaluation of the committed expert checkpoint (kernel
-B1b, robot + articulated cabinet), and the open_drawer point-cloud DAgger
-student evaluation (kernels B2, the sphere-tracing depth camera, and B3,
-farthest-point sampling, beside B1b's physics).  Every phase runs once per
-path.  Prints one JSON object per phase (``device``, ``build``, then
-``kernel_check``, ``small_reference``, ``main_path`` and ``timing`` for
-each path, and the vision path's ``step_breakdown``), then the ``kernels``
-line, the card's name and power limit, and ``{"ok": true, "device":
-{...}}`` as the last line.  Any failed phase raises, so the script exits
-non-zero and prints no result line.  ``--only`` runs a subset of the phases
-(for bringing up a kernel); the default is all.
+B1b, robot + articulated cabinet), the same evaluation on cabinets whose
+handle bars are mesh geoms (kernel B1c, baked-SDF contacts; the cabinets are
+generated and baked into a fresh asset root under ``build/``), and the
+open_drawer point-cloud DAgger student evaluation (kernels B2, the
+sphere-tracing depth camera, and B3, farthest-point sampling, beside B1b's
+physics).  Every phase runs once per path; the mesh-handle path also runs
+``train``, five PPO iterations at the YAML's full width.  Prints one JSON
+object per phase (``device``, ``bake``, ``build``, then ``kernel_check``,
+``small_reference``, ``main_path`` and ``timing`` for each path, ``train``,
+and the vision path's ``step_breakdown``), then the ``kernels`` line, the
+card's name and power limit, and ``{"ok": true, "device": {...}}`` as the
+last line.  Any failed phase raises, so the script exits non-zero and prints
+no result line.  ``--only`` runs a subset of the phases (for bringing up a
+kernel); the default is all.
 """
 
 import argparse
 import json
 import os
 import random
+import shutil
 import statistics
 import subprocess
 import sys
@@ -39,8 +44,13 @@ TOL = {"qpos": 1e-5, "qvel": 1e-3, "body_pos": 1e-5, "body_quat": 1e-5,
        "body_linvel": 1e-3, "body_angvel": 1e-2, "obj_qpos": 1e-5, "obj_qvel": 1e-3,
        "anchor_point": 1e-4}
 ANCHOR_ID_MATCH = 0.999
-DRAWER_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts",
-                           "open_drawer_ppo", "expert_r3c_seed389", "model_30000.ckpt")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DRAWER_CKPT = os.path.join(ROOT, "artifacts", "open_drawer_ppo", "expert_r3c_seed389",
+                           "model_30000.ckpt")
+# the mesh-handle cabinets and their bakes, made anew by every run (the
+# checkout's git-ignored build/; the default asset root is shared with the
+# JAX package, whose bakes would be read instead)
+MESH_ASSETS = os.path.join(ROOT, "build", "chip_smoke_mesh_assets")
 H100_F32_FLOPS = 67e12        # non-tensor f32 peak, NVIDIA data sheet (SXM)
 H100_BYTES_PER_S = 3.35e12    # HBM3 peak, NVIDIA data sheet (SXM)
 
@@ -56,7 +66,7 @@ def nvidia_smi_line():
 
 
 # ----------------------------------------------------------------------
-# the two physics paths
+# the physics paths
 # ----------------------------------------------------------------------
 
 def random_policy(env, cfg):
@@ -121,7 +131,7 @@ def expert_rollout(env, cfg, steps, seed):
 
 
 class Path(NamedTuple):
-    """What differs between the two physics paths; every phase takes one."""
+    """What differs between the physics paths; every phase takes one."""
     kernel: str                 # key of cuda_lib.launch_counts()
     source: str
     replaces: str
@@ -159,6 +169,22 @@ PATHS = (
          flags=["--taskcfg", "open_drawer", "--algocfg", "ppo",
                 "--algo.tricks.use_state_norm"],
          main_flags=["--resume", DRAWER_CKPT, "--exp_name", "chip_smoke_drawer_seed389"],
+         part="obj", rollout=expert_rollout, rollout_steps=40,
+         policy=lambda env, cfg: expert_policy(env, cfg, dtype="f32"),
+         draws=lambda rs, n: (rs.uniform(-0.05, 0.05, (n, 3)).astype(np.float32),
+                              rs.uniform(-np.pi / 12, np.pi / 12, n).astype(np.float32)),
+         chain_physics_steps=2, chain_tol=0.0, min_success=0.8),
+    # the same cabinets with their handle bars as mesh geoms (baked SDFs)
+    Path(kernel="b1c",
+         source="partmanip_tpu_torch/csrc/fused_inner_step_obj.cu",
+         replaces="partmanip_tpu/sim/fused.py:863",
+         replaces_function="partmanip_tpu/sim/fused.py:_inner_step_tiled "
+                           "(n_grid > 0, :863-890) with its narrowphase "
+                           "_grid_narrowphase (:1415)",
+         flags=["--taskcfg", "open_drawer", "--algocfg", "ppo",
+                "--algo.tricks.use_state_norm", "--task.asset.mesh_handle",
+                "--task.asset.assetRoot", MESH_ASSETS],
+         main_flags=["--resume", DRAWER_CKPT, "--exp_name", "chip_smoke_mesh_seed389"],
          part="obj", rollout=expert_rollout, rollout_steps=40,
          policy=lambda env, cfg: expert_policy(env, cfg, dtype="f32"),
          draws=lambda rs, n: (rs.uniform(-0.05, 0.05, (n, 3)).astype(np.float32),
@@ -213,7 +239,7 @@ def phase_device():
 
 def phase_build(scenes):
     """Compile every kernel (the physics kernel of every scene, B2 and B3;
-    one nvcc per source, all started together) and load the libraries.
+    one nvcc per library, all started together) and load the libraries.
     Returns the ptxas lines per kernel."""
     from partmanip_tpu_torch.ops import fps, raymarch_cuda
     from partmanip_tpu_torch.sim import fused
@@ -379,6 +405,75 @@ def phase_main_path(path):
     return launches[path.kernel]
 
 
+TRAIN_ITERATIONS = 5
+
+
+def phase_train(path):
+    """Five PPO iterations on the mesh-handle cabinets through the CLI entry
+    point at the YAML's full width (2048 envs, n_steps 8, 5 epochs x 8
+    minibatches, MLP 512-512-512 in the default compute dtype): every
+    physics step through the path's kernel and none through another,
+    finite parameters and Train/* metrics.  Reports the median seconds of
+    iterations 2-5 and the env-steps/s they give, then (launches no longer
+    counted) one more iteration of the same trainer taken apart: the
+    rollout alone and the whole iteration, host clock around synchronised
+    work; the update is their difference."""
+    import train_torch
+    from partmanip_tpu_torch.utils import cuda_lib
+    from partmanip_tpu_torch.utils.fetch import fetch_scalars
+    cuda_lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    runner = train_torch.main([
+        "--taskcfg", "open_drawer", "--algocfg", "ppo", "--task.asset.mesh_handle",
+        "--task.asset.assetRoot", MESH_ASSETS,
+        "--algo.max_iterations", str(TRAIN_ITERATIONS),
+        "--exp_name", "chip_smoke_train_seed7", "--log.mode", "screen"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = cuda_lib.launch_counts()
+    others = sum(n for v, n in launches.items() if v != path.kernel)
+    cfg, env = runner.cfg, runner.env
+    # the first reset, then n_steps control steps per iteration (no eval or
+    # reset in between: eval_frequence is far above the iteration count)
+    expected = 1 + runner.curr_iter * runner.n_steps * env.control_freq_inv
+    log = runner.last_log
+    train_keys = [k for k in log if k.startswith("Train/")]
+    bad = [k for k in train_keys if not np.isfinite(log[k])]
+    finite = all(bool(torch.isfinite(p).all()) for p in runner.ac.parameters())
+    secs = runner.iteration_seconds
+    median = statistics.median(secs[1:])
+    width = (env.num_envs, runner.n_steps, runner.n_updates, runner.num_mini_batches,
+             list(cfg["model"]["network"]["hid_dim"]),
+             cfg["model"]["network"].get("dtype", "bf16"))
+    ts, env_state = runner.init_state(7)
+    t0 = time.perf_counter()
+    ts, env_state, _, _ = runner._rollout(ts, env_state)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fetch_scalars(runner._train_iteration(ts, env_state, float(runner._lr_now()))[2])
+    iteration_s = time.perf_counter() - t0
+    emit("train", variant=path.kernel, iterations=runner.curr_iter, width=width,
+         kernel_launches=launches[path.kernel], other_kernel_launches=others,
+         expected_launches=expected, iteration_seconds=secs,
+         seconds_per_iteration_median_2_to_5=median,
+         env_steps_per_second=runner.n_steps * env.num_envs / median, wall_seconds=wall,
+         finite_parameters=finite,
+         breakdown={"rollout_s": rollout_s, "iteration_s": iteration_s,
+                    "update_s": iteration_s - rollout_s}, metrics=log)
+    print(f"train: {median:.4f} s per iteration (median of 2-{runner.curr_iter}), "
+          f"{runner.n_steps * env.num_envs / median:.1f} env-steps/s", flush=True)
+    if width != (NUM_ENVS, 8, 5, 8, [512, 512, 512], "bf16") or runner.curr_iter != TRAIN_ITERATIONS:
+        raise RuntimeError(f"train phase did not run at full width: {width}")
+    if launches[path.kernel] != expected or others != 0:
+        raise RuntimeError(f"train: kernel {path.kernel} launched {launches[path.kernel]} "
+                           f"times (others {others}), expected {expected}")
+    if bad or not finite or not train_keys:
+        raise RuntimeError(f"train output not finite: {bad}, parameters ok={finite}")
+    return median
+
+
 def inner_step_flops(env, touching):
     """f32 operations of ONE inner step of one env, counted from the
     kernel's source (csrc/fused_inner_step.cu, csrc/fused_inner_step_obj.cu;
@@ -403,7 +498,8 @@ def inner_step_flops(env, touching):
     sph_anc = n_anc[env.spheres.link_idx.cpu().numpy()]
     robot = (fk_mass(L, D, float(tri(n_anc).sum())) + tree(D)
              + S * (ROT + 3) + float(sph_anc.sum()) * (JCOL + 6))
-    spheres = (touching["ground"] + touching.get("cube", 0) + touching.get("boxes", 0)) / E
+    spheres = (touching["ground"] + touching.get("cube", 0) + touching.get("boxes", 0)
+               + touching.get("grids", 0)) / E
     if scene.obj_tree is None:
         # the free cube: its narrowphase per sphere, two partners per touching
         # sphere, the body integration
@@ -418,6 +514,20 @@ def inner_step_flops(env, touching):
         partners = 1
         rest = (fk_mass(Lo, Do, float(tri(o_anc).sum(-1).mean())) + tree(Do) + boxes
                 + g_act * S * (ROT + 3 + SDF) + touching["box_pairs"] / E * per_pair)
+        if scene.obj_grids is not None:
+            # mesh-SDF geoms: poses; per (sphere, live geom) the local point
+            # and a lookup (inside its grid: index 6, cell and fractions 6,
+            # value and gradient 60, norm 6; outside: index and test 12);
+            # per touching pair as a box pair with the lookup for the SDF
+            # and the normal's rotation and normalisation
+            QUERY_IN, QUERY_OUT = 78, 12
+            K = scene.obj_grids.link_idx.shape[-1]
+            k_act = float(scene.obj_grids.geom_mask.sum(-1).float().mean())
+            inside = touching["grid_queries_inside"] / E
+            per_grid_pair = per_pair - SDF + QUERY_IN + ROT + 10
+            rest += (K * (ROT + QMUL + 3) + k_act * S * (ROT + 3) + inside * QUERY_IN
+                     + (k_act * S - inside) * QUERY_OUT
+                     + touching["grid_pairs"] / E * per_grid_pair)
     per_touch = (partners * 70 + 120 + 45 + D * (JCOL + 15)
                  + float(tri(sph_anc).mean()) * 6 + float(sph_anc.mean()) * 6)
     return robot + spheres * per_touch + rest
@@ -448,11 +558,14 @@ def phase_timing(path, env, sim, targets, contact_case, repeats=20):
     E = env.num_envs
     touching = contact_states.touching_counts(env, sim)
     flops = inner_step_flops(env, touching) * n * E
-    # state in and out; B1b also reads its object table and ids once
+    # state in and out; B1b also reads its object table and ids once; B1c
+    # its grid records and the 8 cells of every query inside a grid
     packed = fused._packed(env.scene)
     nbytes = 2 * (buf.numel() * 4 + anc_b.numel() * 4)
-    if "table" in packed:
-        nbytes += packed["table"].nbytes + packed["obj_id"].nbytes
+    if "tables" in packed:
+        nbytes += sum(t.nbytes for t in packed["tables"]) + packed["obj_id"].nbytes
+    if env.scene.obj_grids is not None:
+        nbytes += touching["grid_queries_inside"] * 8 * 4
     ops_ms, bytes_ms = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
     return {"ms": kernel_ms, "kernel_ms": kernel_ms, "one_inner_step_ms": kernel1_ms,
             "control_step_ms": env.control_freq_inv * kernel_ms,
@@ -672,7 +785,7 @@ def vision_main_path():
     n_obs = 1 + rounds * (1 + T)                    # init_state's reset, then each round
     c2f = rig.coarse_to_fine and rig.im_h % 4 == 0 and rig.im_w % 4 == 0
     expected = {"b2": n_obs * (2 if c2f else 1), "b3": n_obs,
-                "b1b": 1 + rounds * (1 + T * env.control_freq_inv), "b1a": 0}
+                "b1b": 1 + rounds * (1 + T * env.control_freq_inv), "b1a": 0, "b1c": 0}
     log = runner.last_log
     obs = runner.last_obs
     pts = obs.reshape(env.num_envs, K_POINTS, 3)
@@ -868,7 +981,29 @@ def run_vision_path(phases, ptxas):
             for k in ("b2", "b3")]
 
 
-PHASES = ("kernel_check", "small_reference", "main_path", "timing")
+PHASES = ("kernel_check", "small_reference", "main_path", "timing", "train")
+
+
+def make_envs():
+    """The full-width env of each physics path.  The mesh-handle path's
+    cabinets are generated and baked here, into a fresh asset root, on the
+    card (phase ``bake``)."""
+    envs = []
+    for path in PATHS:
+        t0 = time.time()
+        if path.kernel == "b1c":
+            shutil.rmtree(MESH_ASSETS, ignore_errors=True)
+        env, cfg = make_env(path, NUM_ENVS)
+        if path.kernel == "b1c":
+            stack = env.scene.grid_stack
+            vs = stack.voxel_size.cpu()
+            emit("bake", seconds=time.time() - t0, grids=stack.sdf.shape[0],
+                 grid_shape=list(stack.sdf.shape[1:]), stack_mb=stack.sdf.numel() * 4 / 1e6,
+                 voxel_m=[float(vs.min()), float(vs.max())],
+                 geoms_per_env=env.scene.obj_grids.link_idx.shape[-1],
+                 note="env construction incl. cabinet generation and the bakes")
+        envs.append((env, cfg))
+    return envs
 
 
 def main(argv=None):
@@ -878,7 +1013,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
 
     phase_device()
-    envs = [make_env(path, NUM_ENVS) for path in PATHS]
+    envs = make_envs()
     ptxas = phase_build([env.scene for env, _ in envs])
     kernels = []
     for path, (env, cfg) in zip(PATHS, envs):
@@ -895,6 +1030,8 @@ def main(argv=None):
             timing = phase_timing(path, env, *cases[f"rollout{path.rollout_steps}"],
                                   cases["contact"])
             emit("timing", variant=path.kernel, **timing)
+        if "train" in args.only and path.kernel == "b1c":
+            phase_train(path)
         kernels.append({"name": f"fused_inner_step_{path.kernel}", "route": "cuda",
                         "source": path.source, "replaces": path.replaces,
                         "replaces_function": path.replaces_function,

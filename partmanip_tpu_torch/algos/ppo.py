@@ -1,18 +1,33 @@
-"""PPO runner (PyTorch) — evaluation path.
+"""PPO with KL-gated decoupled actor/critic phases (PyTorch).
 
-Counterpart of ``partmanip_tpu/algos/ppo.py`` for what ``--test_only`` runs:
-state init, checkpoint resume and the evaluation rounds, with the same
-metric names (``Test/succ_rate_max``, ``Test/reward_mean``, …).  The train
-iteration (rollout storage, GAE, the actor/critic losses with the KL gate,
-Adam, ``save``) is not ported yet: ``run`` without ``test_only`` raises.
+Counterpart of ``partmanip_tpu/algos/ppo.py``: the train iteration —
+rollout(n_steps) → GAE → actor phase → critic phase —, the evaluation
+rounds, checkpoint save/resume and the outer loop, with the same metric
+names (``Train/*``, ``Test/succ_rate_max``, …):
 
-Observation RMS normalization is applied frozen during evaluation, as in the
-JAX package.
+* separate Adam optimizers for actor(+log_std) and critic, the lr schedule
+  applied to the actor only; :class:`Adam` computes what ``optax.chain(
+  optax.clip_by_global_norm(max_grad_norm), optax.adam(lr))`` computes, in
+  its order (``torch.optim.Adam`` places ε and the bias corrections
+  differently, and ``clip_grad_norm_`` adds 1e-6 to the norm);
+* KL gate: a minibatch update is skipped entirely when the (reference-form)
+  KL estimate exceeds ``desired_kl`` — the optimizer state and its step
+  count stay as they were;
+* tricks: mini/whole adv-norm, clipped value loss, grad clip;
+* obs RMS normalization updated during rollouts and frozen once eval
+  max-success exceeds 50 %;
+* GAE with adv=0 across dones and succ_value-pinned returns (storage.py).
+
+The rollout draws its exploration noise from a ``torch.Generator`` (the JAX
+package's PRNG keys do not carry over); the parity test feeds both
+trainers a fixed rollout and fixed minibatch indices.
 """
 
 from __future__ import annotations
 
+import math
 import os
+import time
 from os.path import join as pjoin
 from typing import Dict, NamedTuple, Optional
 
@@ -21,18 +36,77 @@ import torch
 
 from ..models.actor_critic import ActorCritic
 from . import rms as rms_lib
+from . import storage
 from ..utils import checkpoint as ckpt_lib
 from ..utils import convert
 from ..utils.fetch import fetch_scalars
 
 
-def _from_jax(j: dict) -> dict:
-    """A JAX PPO checkpoint (``checkpoint.load_jax``) in the port's format."""
+def _from_jax(j: dict, network: str = "MLP") -> dict:
+    """A JAX PPO checkpoint (``checkpoint.load_jax``) in the port's format,
+    its Adam states included."""
     return {"iteration": int(j["iteration"]),
-            "ac": convert.actor_critic_from_jax(j["params"]._asdict()),
+            "ac": convert.actor_critic_from_jax(j["params"]._asdict(), network),
+            "opt_actor": convert.adam_state_from_jax(j["opt_actor"], "actor", network),
+            "opt_critic": convert.adam_state_from_jax(j["opt_critic"], "critic", network),
             "rms": j["rms"]._asdict(), "update_rms": bool(j["update_rms"]),
             "total_steps": int(j["total_steps"]), "tricks": j["tricks"],
             "obs_mode": j["obs_mode"]}
+
+
+class Adam:
+    """``optax.chain(clip_by_global_norm(max_norm), adam(lr))`` (the clip
+    only when ``max_norm`` is set) over named parameters, with optax's
+    arithmetic: g ← g if ‖g‖ < max_norm else g/‖g‖·max_norm over all
+    parameters; μ ← (1−β₁)g + β₁μ, ν ← (1−β₂)g² + β₂ν, count ← count + 1;
+    p ← p + (μ/(1−β₁ᶜᵒᵘⁿᵗ)) / (√(ν/(1−β₂ᶜᵒᵘⁿᵗ)) + ε) · (−lr).  A step that
+    is not taken leaves every moment and the count as they were."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8        # optax.adam's defaults, as the JAX package uses
+
+    def __init__(self, named_params, max_norm: Optional[float] = None):
+        self.names = [n for n, _ in named_params]
+        self.params = [p for _, p in named_params]
+        self.max_norm = max_norm
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, lr: float) -> None:
+        """Apply one update from the parameters' ``.grad``."""
+        grads = [p.grad for p in self.params]
+        if self.max_norm is not None:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            keep = g_norm < self.max_norm
+            grads = [torch.where(keep, g, (g / g_norm) * self.max_norm) for g in grads]
+        self.count += 1
+        # the bias corrections in f32, as optax computes decay ** count
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+        bc1 = (1 - f32(self.B1) ** self.count).item()
+        bc2 = (1 - f32(self.B2) ** self.count).item()
+        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+            mu.copy_((1 - self.B1) * g + self.B1 * mu)
+            nu.copy_((1 - self.B2) * (g * g) + self.B2 * nu)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.EPS)
+            p.copy_(p + u * (-lr))
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": dict(zip(self.names, self.mu)),
+                "nu": dict(zip(self.names, self.nu))}
+
+    def load_state_dict(self, d: dict) -> None:
+        if set(d["mu"]) != set(self.names) or set(d["nu"]) != set(self.names):
+            raise ValueError(f"optimizer state for {sorted(d['mu'])}, "
+                             f"not {sorted(self.names)}")
+        self.count = int(d["count"])
+        for i, n in enumerate(self.names):
+            for mine, theirs in ((self.mu, d["mu"]), (self.nu, d["nu"])):
+                t = torch.as_tensor(theirs[n], dtype=torch.float32)
+                if t.shape != mine[i].shape:
+                    raise ValueError(f"optimizer moment {n}: {tuple(t.shape)} vs "
+                                     f"{tuple(mine[i].shape)}")
+                mine[i].copy_(t)
 
 
 class PPOTrainState(NamedTuple):
@@ -42,7 +116,9 @@ class PPOTrainState(NamedTuple):
     rms: rms_lib.RMSState
     update_rms: torch.Tensor      # bool scalar (freeze flag)
     curr_obs: torch.Tensor        # [E, O] normalized obs carried across iters
-    rng: torch.Generator          # policy-noise generator
+    rng: torch.Generator          # policy-noise / minibatch generator
+    opt_actor: Adam               # actor network + log_std
+    opt_critic: Adam
 
 
 class PPO:
@@ -63,9 +139,16 @@ class PPO:
             self.num_obs += env.num_obs["proprio_state"]
         self.num_actions = env.num_actions
         self.max_episode_length = env.max_episode_length
+        self.succ_value = cfg["succ_value"]
         self.model_cfg = cfg["model"]
+        self.max_iter = cfg["max_iterations"]
+        self.n_steps = cfg["n_steps"]
+        self.n_updates = cfg["n_updates"]
+        self.num_mini_batches = cfg["n_minibatches"]
 
         self.eval_round = cfg["eval_round"]
+        self.eval_freq = cfg["eval_frequence"]
+        self.save_freq = cfg["save_frequence"]
         self.test_only = cfg.get("test_only") or False
         self.save_pose = cfg.get("save_pose") or False
         self.save_video = cfg.get("save_video") or False
@@ -75,13 +158,27 @@ class PPO:
                 "save_pose / save_video are not ported yet (ROADMAP Queue A: "
                 "renderer, tooling)")
 
+        self.lr_schedule = cfg["lr_schedule"]
+        if self.lr_schedule not in ("fixed", "linear_decay", "step_decay"):
+            raise ValueError(f"lr_schedule {self.lr_schedule!r}")
+        self.lr = cfg["lr"]
+        self.desired_kl = cfg["desired_kl"]
+        if not self.desired_kl > 0:
+            raise ValueError(f"desired_kl must be > 0, got {self.desired_kl}")
+        self.epsilon_clip = cfg["epsilon_clip"]
+        self.gamma = cfg["gamma"]
+        self.lam = cfg["lam"]
+        self.sampler = cfg["sampler"]
+
         self.tricks = {k: cfg["tricks"][k] for k in self.TRICKS_KEYS}
+        self.max_grad_norm = cfg["tricks"].get("max_grad_norm", 0.5)
 
         self.ac = ActorCritic(self.num_obs, self.num_actions,
                               self.model_cfg).to(self.device)
 
         self.curr_iter = 0
         self.total_envsteps = 0
+        self.iteration_seconds = []    # wall time of each train iteration
 
         par = cfg.get("parallel") or {}
         self.num_devices = int(par.get("num_devices") or 1)
@@ -94,9 +191,17 @@ class PPO:
     # state init / io
     # ------------------------------------------------------------------
 
+    def _optimizers(self):
+        """Fresh (actor + log_std, critic) optimizers over ``self.ac``."""
+        clip = self.max_grad_norm if self.tricks["use_grad_clip"] else None
+        actor = [(n, p) for n, p in self.ac.named_parameters() if not n.startswith("critic.")]
+        critic = [(n, p) for n, p in self.ac.named_parameters() if n.startswith("critic.")]
+        return Adam(actor, clip), Adam(critic, clip)
+
     def init_state(self, seed: int):
-        """Seeded network weights, env state after its first reset (one
-        settling physics step) and a fresh RMS."""
+        """Seeded network weights and generator, env state after its first
+        reset (one settling physics step), a fresh RMS and fresh
+        optimizers."""
         self.ac.init(seed)
         rng = torch.Generator(device=self.device)
         rng.manual_seed(int(seed))
@@ -109,8 +214,9 @@ class PPO:
                               device=self.device)
         if self.tricks["use_state_norm"]:
             curr_obs, rms_state = rms_lib.normalize(rms_state, curr_obs, update)
-        ts = PPOTrainState(rms=rms_state, update_rms=update,
-                           curr_obs=curr_obs, rng=rng)
+        opt_actor, opt_critic = self._optimizers()
+        ts = PPOTrainState(rms=rms_state, update_rms=update, curr_obs=curr_obs,
+                           rng=rng, opt_actor=opt_actor, opt_critic=opt_critic)
         return ts, env_state
 
     def _select_obs(self, obs: Dict[str, torch.Tensor]):
@@ -119,16 +225,36 @@ class PPO:
             o = torch.cat([o, obs["proprio_state"]], dim=-1)
         return o
 
+    def save(self, it: int, ts: PPOTrainState) -> str:
+        """Write ``model_{it}.ckpt`` (format of :meth:`resume`)."""
+        os.makedirs(self.save_ckpt_dir, exist_ok=True)
+        path = pjoin(self.save_ckpt_dir, f"model_{it}.ckpt")
+        ckpt_lib.save(path, {
+            "iteration": it,
+            "ac": self.ac.state_dict(),
+            "opt_actor": ts.opt_actor.state_dict(),
+            "opt_critic": ts.opt_critic.state_dict(),
+            "rms": ts.rms._asdict(),
+            "update_rms": bool(ts.update_rms),
+            "total_steps": self.total_envsteps,
+            "tricks": self.tricks,
+            "obs_mode": self.obs_mode,
+            "model_cfg": self.model_cfg,
+        })
+        print(f"save ckpt to {path}!")
+        return path
+
     def resume(self, ts: PPOTrainState, path: Optional[str]):
         """Load a checkpoint of the port (``{"iteration", "ac" (state dict),
-        "rms" {"n", "mean", "S"}, "update_rms", "total_steps", "tricks",
-        "obs_mode"}``) or one written by the JAX package (detected by its
-        format, converted through ``utils.convert``)."""
+        "opt_actor" / "opt_critic" ({"count", "mu", "nu"}; optional), "rms" {"n",
+        "mean", "S"}, "update_rms", "total_steps", "tricks", "obs_mode"}``)
+        or one written by the JAX package (detected by its format, converted
+        through ``utils.convert``, its Adam states included)."""
         if not path:
             return ts
         print(f"load ckpt from {path}!")
         if ckpt_lib.is_jax_checkpoint(path):
-            d = _from_jax(ckpt_lib.load_jax(path))
+            d = _from_jax(ckpt_lib.load_jax(path), self.model_cfg["network"]["name"])
         else:
             d = ckpt_lib.load(path)
         for k in self.TRICKS_KEYS:
@@ -143,6 +269,11 @@ class PPO:
         self.curr_iter = d["iteration"]
         self.total_envsteps = d["total_steps"]
         self.ac.load_state_dict(d["ac"])
+        if "opt_actor" in d:
+            ts.opt_actor.load_state_dict(d["opt_actor"])
+            ts.opt_critic.load_state_dict(d["opt_critic"])
+        else:   # a checkpoint written for evaluation only
+            print("the checkpoint holds no optimizer state: Adam starts afresh")
         r = d["rms"]
         dev = self.device
         return ts._replace(
@@ -152,6 +283,142 @@ class PPO:
                 S=torch.as_tensor(r["S"], dtype=torch.float32, device=dev)),
             update_rms=torch.as_tensor(bool(d["update_rms"]), device=dev),
         )
+
+    # ------------------------------------------------------------------
+    # train iteration
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def _rollout(self, ts: PPOTrainState, env_state):
+        """n_steps of policy + env, collecting the Rollout (time-major)."""
+        obs, rms_state = ts.curr_obs, ts.rms
+        steps, infos = [], {}
+        for _ in range(self.n_steps):
+            actions, logp, values, mu, sigma = self.ac.random_act_cri(
+                obs, generator=ts.rng)
+            env_state, next_obs, rew, dones, extras = self.env.step(
+                env_state, actions, train=True)
+            o = self._select_obs(next_obs)
+            if self.tricks["use_state_norm"]:
+                o, rms_state = rms_lib.normalize(rms_state, o, ts.update_rms)
+            steps.append(storage.Rollout(
+                observations=obs, actions=actions, rewards=rew, dones=dones,
+                succs=env_state.reset_succ, values=values[..., 0],
+                log_probs=logp, mu=mu, sigma=sigma))
+            step_infos = {k: v.float() for k, v in extras.items()}
+            step_infos["value_pred"] = values[..., 0]
+            for k, v in step_infos.items():
+                infos.setdefault(k, []).append(v)
+            obs = o
+        ro = storage.Rollout(*[torch.stack(x) for x in zip(*steps)])
+        infos = {k: torch.stack(v) for k, v in infos.items()}
+        return ts._replace(curr_obs=obs, rms=rms_state), env_state, ro, infos
+
+    def _actor_loss(self, obs, actions, old_logp, advantages):
+        mean = self.ac.actor(obs)
+        std = self.ac.std()
+        raw = self.ac.deactivate(actions)
+        logp = self.ac._log_prob(mean, std, raw)
+        ratio = torch.exp(logp - old_logp)
+        surr = -advantages * ratio
+        surr_clipped = -advantages * torch.clamp(
+            ratio, 1.0 - self.epsilon_clip, 1.0 + self.epsilon_clip)
+        return torch.maximum(surr, surr_clipped).mean()
+
+    def _critic_loss(self, obs, returns, old_values):
+        value = self.ac.critic(obs)[..., 0]
+        if self.tricks["use_clipped_value_loss"]:
+            delta = torch.abs(self.epsilon_clip * old_values).mean()
+            ret_c = old_values + torch.clamp(returns - old_values, -delta, delta)
+            return ((value - ret_c.detach()) ** 2).mean()
+        return ((returns - value) ** 2).mean()
+
+    @torch.no_grad()
+    def _kl(self, obs, old_mu, old_sigma):
+        """Reference-form KL estimate: stored sigma rows are log-std; the
+        estimate uses exp(sigma) as std."""
+        mu = self.ac.actor(obs)
+        sigma = self.ac.log_std.expand(mu.shape)
+        kl = torch.sum(
+            sigma - old_sigma
+            + (torch.exp(old_sigma) ** 2 + (old_mu - mu) ** 2)
+            / (2.0 * torch.exp(sigma) ** 2) - 0.5, dim=-1)
+        return kl.mean()
+
+    def _train_iteration(self, ts: PPOTrainState, env_state, lr):
+        """Rollout, GAE, the KL-gated actor phase and the critic phase over
+        ``n_updates`` epochs of minibatches.  Returns (ts, env_state,
+        metrics as device scalars)."""
+        ts, env_state, ro, infos = self._rollout(ts, env_state)
+        with torch.no_grad():
+            last_values = self.ac.cri(ts.curr_obs)[..., 0]
+        returns, advantages = storage.compute_returns(
+            ro, last_values, self.gamma, self.lam,
+            None if self.succ_value is None else float(self.succ_value),
+            self.tricks["whole_adv_norm"])
+
+        total = self.n_steps * self.num_envs
+        flat = lambda x: x.reshape((total,) + x.shape[2:])
+        obs_f, act_f, logp_f = flat(ro.observations), flat(ro.actions), flat(ro.log_probs)
+        mu_f, sigma_f = flat(ro.mu), flat(ro.sigma)
+        adv_f, ret_f, val_f = flat(advantages), flat(returns), flat(ro.values)
+        epoch_idx = storage.minibatch_indices(
+            ts.rng, total, self.num_mini_batches, self.sampler,
+            n_epochs=self.n_updates, device=obs_f.device)
+
+        # ---- actor phase (the lr schedule applies to the actor only) ----
+        kls, losses, applied = [], [], []
+        for idx in epoch_idx:
+            o, a, lp, ad = obs_f[idx], act_f[idx], logp_f[idx], adv_f[idx]
+            if self.tricks["mini_adv_norm"]:
+                ad = (ad - ad.mean()) / (ad.std(correction=0) + 1e-8)
+            kl = self._kl(o, mu_f[idx], sigma_f[idx])
+            self.ac.zero_grad(set_to_none=True)
+            loss = self._actor_loss(o, a, lp, ad)
+            loss.backward()
+            gate = bool(kl <= self.desired_kl)
+            if gate:
+                ts.opt_actor.step(lr)
+            kls.append(kl)
+            losses.append(loss.detach() if gate else torch.zeros_like(loss))
+            applied.append(gate)
+
+        # ---- critic phase ----
+        v_losses = []
+        for idx in epoch_idx:
+            self.ac.zero_grad(set_to_none=True)
+            loss = self._critic_loss(obs_f[idx], ret_f[idx], val_f[idx])
+            loss.backward()
+            ts.opt_critic.step(self.lr)
+            v_losses.append(loss.detach())
+        self.ac.zero_grad(set_to_none=True)
+
+        kls = torch.stack(kls)
+        gate_f = torch.tensor(applied, dtype=kls.dtype, device=kls.device)
+        n_applied = torch.clamp(gate_f.sum(), min=1.0)
+        noise = torch.exp(self.ac.log_std.detach())
+        metrics = {
+            "Train/value_gt_return_mean": returns.mean(),
+            "Train/value_gt_return_max": returns.max(),
+            "Train/value_function_loss": torch.stack(v_losses).mean(),
+            "Train/surrogate_loss": torch.stack(losses).sum() / n_applied,
+            # KL averaged over *applied* minibatches only
+            "Train/kl": (kls * gate_f).sum() / n_applied,
+            "Train/kl_max": kls.max(),
+            "Train/kl_update_count": gate_f.sum(),
+            # noise-std curves log exp(log_std) like the reference (the
+            # effective sampling std is exp(2·log_std))
+            "Train/mean_action_noise_std": noise.mean(),
+            "Train/mean_t_noise_std": noise[:3].mean(),
+            "Train/mean_r_noise_std": noise[3:-1].mean(),
+            "Train/mean_gripper_noise_std": noise[-1],
+        }
+        # per-key mean and mean-of-per-env-max ([T, E]-stacked infos)
+        for k, v in infos.items():
+            v2 = v.reshape(self.n_steps, -1)
+            metrics[f"Train/{k}_mean"] = v2.mean()
+            metrics[f"Train/{k}_max"] = v2.max(dim=0).values.mean()
+        return ts, env_state, metrics
 
     # ------------------------------------------------------------------
     # eval
@@ -214,14 +481,51 @@ class PPO:
     # outer loop
     # ------------------------------------------------------------------
 
+    def _lr_now(self):
+        if self.lr_schedule == "linear_decay":
+            return np.float32(
+                max(self.lr * (1 - self.curr_iter / self.max_iter), 1e-5))
+        if self.lr_schedule == "step_decay":
+            return np.float32(
+                1e-5 if self.curr_iter > self.max_iter // 2 else self.lr)
+        return np.float32(self.lr)
+
     def run(self, seed: int = 0, resume: Optional[str] = None):
-        if not self.test_only:
-            raise NotImplementedError(
-                "PPO training is not ported yet (ROADMAP Queue A: PPO train "
-                "iteration); run with --test_only")
         ts, env_state = self.init_state(seed)
         ts = self.resume(ts, resume or self.cfg.get("resume"))
-        ts, env_state, log = self.eval(ts, env_state, mode="Test")
-        self.logger.info(log, self.curr_iter)
-        self.last_log, self.last_env_state = log, env_state
+        if self.test_only:
+            ts, env_state, log = self.eval(ts, env_state, mode="Test")
+            self.logger.info(log, self.curr_iter)
+            self.last_log, self.last_env_state = log, env_state
+            return ts
+
+        while self.curr_iter < self.max_iter:
+            self.curr_iter += 1
+            t0 = time.time()
+            lr = self._lr_now()
+            ts, env_state, metrics = self._train_iteration(ts, env_state, float(lr))
+            log = fetch_scalars(metrics)          # waits for the iteration
+            elapsed = time.time() - t0
+            self.iteration_seconds.append(elapsed)
+            self.total_envsteps += self.n_steps * self.num_envs
+            log["Progress/total_steps"] = self.curr_iter
+            log["Progress/iteration_time"] = elapsed
+            log["Progress/FPS"] = int(self.n_steps * self.num_envs / max(elapsed, 1e-9))
+            log["Train/learning_rate"] = float(lr)
+            self.logger.info(log, self.curr_iter)
+            self.last_log = log
+
+            if self.curr_iter % self.eval_freq == 0:
+                ts, env_state, eval_log = self.eval(ts, env_state)
+                self.logger.info(eval_log, self.curr_iter)
+                with torch.no_grad():
+                    env_state, obs = self.env.reset(env_state)
+                o = self._select_obs(obs)
+                if self.tricks["use_state_norm"]:
+                    o, new_rms = rms_lib.normalize(ts.rms, o, ts.update_rms)
+                    ts = ts._replace(rms=new_rms)
+                ts = ts._replace(curr_obs=o)
+            if self.curr_iter % self.save_freq == 0:
+                self.save(self.curr_iter, ts)
+        self.last_env_state = env_state
         return ts

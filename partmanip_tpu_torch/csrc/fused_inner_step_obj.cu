@@ -1,6 +1,7 @@
 // Fused physics inner step for a scene of robot + ground + one articulated
-// object with box collision geoms (variant B1b: open_drawer's cabinet), CUDA
-// C++ for sm_90a.
+// object with box collision geoms (variant B1b: open_drawer's cabinet) and,
+// compiled with FIS_K > 0, K baked mesh-SDF collision geoms on the object
+// tree (variant B1c: the cabinet's mesh handles), CUDA C++ for sm_90a.
 //
 // Replaces the TPU Pallas kernel of partmanip_tpu/sim/fused.py
 // (_make_step_call -> kernel, body _inner_step_tiled with has_obj=True,
@@ -42,6 +43,29 @@
 // long dependent chain (12x12 and 4x4 Cholesky solves twice per inner step,
 // 450 sphere-box distance tests) with its working set in local memory.
 //
+// B1c (FIS_K > 0) replaces the same Pallas kernel with n_grid > 0
+// (partmanip_tpu/sim/fused.py:863-890) together with its narrowphase
+// _grid_narrowphase (:1415), which the TPU build runs in XLA between one
+// pallas_call per inner step because Mosaic cannot gather per lane.  Here
+// the gather is a plain load, so the grid narrowphase runs inside the launch
+// and all n_steps inner steps stay in one launch, as for B1b.  It follows
+// engine._inner_step branch 3b: each (sphere, grid geom) pair queries the
+// shared grid stack (M grids of GX x GY x GZ f32, uploaded once per scene,
+// read through the read-only path with __ldg) for the trilinear value and
+// gradient in f32, in ops/sdf.grid_query_grad's order -- no texture
+// filtering, whose 8-bit interpolation weights are not that arithmetic; a
+// query outside its grid's interior cells skips its 8 loads (the reference
+// then returns exactly outside_value = 1 and a zero gradient).  The grid
+// pairs have an impulse budget of their own (a second penalty_forces call
+// in the plain version), the best grid per sphere (first minimum, partner id
+// 2 + G + k) is considered after the boxes, anchors may live in grid frames,
+// and the reactions reach the object through the grid-link Jacobians at the
+// grid origin.  Like the box pairs, the grid pairs run in two passes (count
+// and mask, then forces on the touching pairs only, with the query
+// recomputed).  The geoms' records are a second table (GridSpec) indexed by
+// the same obj_id.  What bounds it: as B1b, plus S x K trilinear queries of
+// 8 loads per inner step from a 30.9 MB stack that stays in L2.
+//
 // Numerics follow the plain version literally (see fused_common.cuh); what
 // differs is fma contraction and the order of sums.
 
@@ -67,6 +91,9 @@
 #ifndef FIS_G
 #define FIS_G 25
 #endif
+#ifndef FIS_K
+#define FIS_K 0
+#endif
 #ifndef FIS_BLOCK
 #define FIS_BLOCK 32
 #endif
@@ -79,6 +106,13 @@
 #define G FIS_G
 
 static_assert(G <= 32, "the touching pairs of a sphere are kept as one 32-bit mask");
+#if FIS_K > 0
+#define K FIS_K
+#define GX FIS_GX
+#define GY FIS_GY
+#define GZ FIS_GZ
+static_assert(K <= 32, "the touching grid pairs of a sphere are kept as one 32-bit mask");
+#endif
 
 // Robot, spheres and contact constants, in constant memory.  Mirrored field
 // by field by partmanip_tpu_torch/sim/fused.py:pack_spec_obj; every member
@@ -161,6 +195,64 @@ struct ObjSpec {
     float b_mask[G];
     float b_mu[G];
 };
+
+#if FIS_K > 0
+// The K mesh-SDF geoms of one object, a second table beside the ObjSpec
+// records (same obj_id).  Mirrored by
+// partmanip_tpu_torch/sim/fused.py:pack_obj_table; no padding.
+struct GridSpec {
+    int g_link[K];
+    int g_gid[K];             // grid index into the stack
+    float g_pos[K][3];        // grid frame in the link frame
+    float g_quat[K][4];
+    float g_mask[K];
+    float g_mu[K];
+};
+
+// The shared grid stack: sdf [M][GX][GY][GZ], bbox_min [M][3], voxel [M].
+struct GridStack {
+    const float* sdf;
+    const float* bbox;
+    const float* voxel;
+};
+
+// Trilinear SDF value and gradient of grid gid at local point p
+// (ops/sdf.grid_query_grad, same operation order).  Outside the interior
+// cells: value 1 (outside_value) and a zero gradient, without a load.
+__device__ __forceinline__ float grid_query_grad(const GridStack& st, int gid, V3 p, V3* grad) {
+    const float vs = __ldg(st.voxel + gid);
+    const float ix = (p.x - __ldg(st.bbox + 3 * gid)) / vs;
+    const float iy = (p.y - __ldg(st.bbox + 3 * gid + 1)) / vs;
+    const float iz = (p.z - __ldg(st.bbox + 3 * gid + 2)) / vs;
+    const bool valid = ix >= 1.0f && ix <= (float)(GX - 2) && iy >= 1.0f
+                    && iy <= (float)(GY - 2) && iz >= 1.0f && iz <= (float)(GZ - 2);
+    if (!valid) {
+        *grad = v3(0.0f, 0.0f, 0.0f);
+        return 1.0f;
+    }
+    // inside [1, hi] the reference's clip to [0, hi] changes nothing
+    const int x0 = (int)ix, y0 = (int)iy, z0 = (int)iz;
+    const float fx = ix - (float)x0, fy = iy - (float)y0, fz = iz - (float)z0;
+    const float* c = st.sdf + (size_t)gid * (GX * GY * GZ) + (size_t)x0 * (GY * GZ) + y0 * GZ + z0;
+    const float c000 = __ldg(c), c001 = __ldg(c + 1);
+    const float c010 = __ldg(c + GZ), c011 = __ldg(c + GZ + 1);
+    const float c100 = __ldg(c + GY * GZ), c101 = __ldg(c + GY * GZ + 1);
+    const float c110 = __ldg(c + GY * GZ + GZ), c111 = __ldg(c + GY * GZ + GZ + 1);
+    const float c00 = c000 * (1 - fz) + c001 * fz;
+    const float c01 = c010 * (1 - fz) + c011 * fz;
+    const float c10 = c100 * (1 - fz) + c101 * fz;
+    const float c11 = c110 * (1 - fz) + c111 * fz;
+    const float c0 = c00 * (1 - fy) + c01 * fy;
+    const float c1 = c10 * (1 - fy) + c11 * fy;
+    const float val = c0 * (1 - fx) + c1 * fx;
+    const float dx = (c1 - c0);
+    const float dy = ((c01 - c00) * (1 - fx) + (c11 - c10) * fx);
+    const float dz = (((c001 - c000) * (1 - fy) + (c011 - c010) * fy) * (1 - fx)
+                      + ((c101 - c100) * (1 - fy) + (c111 - c110) * fy) * fx);
+    *grad = v3(dx / vs, dy / vs, dz / vs);
+    return val;
+}
+#endif
 
 __constant__ Spec c_spec;
 
@@ -348,11 +440,18 @@ __global__ void __launch_bounds__(FIS_BLOCK)
 fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict__ anc_b_in,
                             float* __restrict__ out, int* __restrict__ anc_b_out,
                             const ObjSpec* __restrict__ obj_table,
+#if FIS_K > 0
+                            const GridSpec* __restrict__ grid_table, GridStack stack,
+#endif
                             const int* __restrict__ obj_id, int E, int n_steps) {
     const int e = blockIdx.x * blockDim.x + threadIdx.x;
     if (e >= E) return;
     const Spec& sp = c_spec;
     const ObjSpec& os = obj_table[obj_id[e]];
+#if FIS_K > 0
+    const GridSpec& gr = grid_table[obj_id[e]];
+    const int KOFF = 2 + G;          // partner ids of the grid geoms start here
+#endif
     const float h = sp.h;
 #define IN(row) in[(size_t)(row) * E + e]
 #define OUT(row) out[(size_t)(row) * E + e]
@@ -403,6 +502,15 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
             bp[g] = quat_rotate(olq[li], ld3(os.b_pos[g])) + olp[li];
             bq[g] = quat_mul(olq[li], ld4(os.b_quat[g]));
         }
+#if FIS_K > 0
+        V3 gp[K];
+        Q4 gq[K];
+        for (int k = 0; k < K; ++k) {
+            const int li = gr.g_link[k];
+            gp[k] = quat_rotate(olq[li], ld3(gr.g_pos[k])) + olp[li];
+            gq[k] = quat_mul(olq[li], ld4(gr.g_quat[k]));
+        }
+#endif
 
         // ---- robot spheres: world centres and velocities ----
         V3 cen[S], vs[S];
@@ -451,6 +559,37 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
             }
         }
         n_act_o = fmaxf(1.0f, n_act_o);
+#if FIS_K > 0
+        // the same for the grid geoms: touching = depth < 0 and an active
+        // pair (unmasked geom, gradient norm > 1e-6); a budget of their own
+        unsigned kmask[S];
+        float best_kd[S];
+        int best_k[S];
+        for (int s = 0; s < S; ++s) {
+            kmask[s] = 0u;
+            best_kd[s] = 1e9f;
+            best_k[s] = -1;
+        }
+        float n_act_k = 0.0f;
+        for (int k = 0; k < K; ++k) {
+            if (gr.g_mask[k] == 0.0f) continue;
+            for (int s = 0; s < S; ++s) {
+                V3 grad;
+                const float val = grid_query_grad(stack, gr.g_gid[k],
+                                                  quat_rotate_inv(gq[k], cen[s] - gp[k]), &grad);
+                const float depth = val - sp.sph_radius[s];
+                if (norm(grad) > 1e-6f && depth < 0.0f) {
+                    kmask[s] |= 1u << k;
+                    n_act_k += 1.0f;
+                    if (depth < best_kd[s]) {
+                        best_kd[s] = depth;
+                        best_k[s] = k;
+                    }
+                }
+            }
+        }
+        n_act_k = fmaxf(1.0f, n_act_k);
+#endif
 
         // ---- pass B: forces, anchors, J^T F and J^T N J (robot), box
         // wrenches and J^T N J at the box centres (object) ----
@@ -474,6 +613,9 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
             float bd = 1e9f;
             if (dg < 0.0f && dg < bd) { id = 0; bd = dg; }
             if (best_g[s] >= 0 && best_bd[s] < bd) { id = 2 + best_g[s]; bd = best_bd[s]; }
+#if FIS_K > 0
+            if (best_k[s] >= 0 && best_kd[s] < bd) { id = KOFF + best_k[s]; bd = best_kd[s]; }
+#endif
             if (id < 0) {          // touches nothing: no force, anchor released
                 anc_b[s] = -1;
                 continue;
@@ -545,13 +687,73 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
                     }
                 }
             }
+#if FIS_K > 0
+            // the touching grid geoms, in geom order
+            for (unsigned m = kmask[s]; m != 0u; m &= m - 1u) {
+                const int k = __ffs(m) - 1;
+                const V3 rel = c - gp[k];
+                V3 grad;
+                const float depth = grid_query_grad(stack, gr.g_gid[k],
+                                                    quat_rotate_inv(gq[k], rel), &grad) - r;
+                const V3 n = quat_rotate(gq[k], grad / fmaxf(norm(grad), 1e-9f));
+                V3 jv[DO], jw[DO];
+                box_jacobian(os, gr.g_link[k], gp[k], olp, oaxis_w, oanchor_w, orev, opris,
+                             jv, jw);
+                V3 vgc = v3(0.0f, 0.0f, 0.0f), wg = v3(0.0f, 0.0f, 0.0f);
+#pragma unroll
+                for (int d = 0; d < DO; ++d) {
+                    vgc = vgc + jv[d] * ov[d];
+                    wg = wg + jw[d] * ov[d];
+                }
+                const V3 vo = vgc + cross(wg, rel);
+                const float mu_k = 0.5f * (sp.sph_mu[s] + gr.g_mu[k]);
+                float fn;
+                const V3 f = penalty_force(depth, n, v - vo, mu_k, 0.3f, sp.cd_obj, n_act_k,
+                                           0.0f, h, sp.kn, sp.kt, sp.max_depen, &fn);
+                F = F + f;
+                const float nn[3] = {n.x, n.y, n.z};
+#pragma unroll
+                for (int a = 0; a < 3; ++a)
+#pragma unroll
+                    for (int b = 0; b < 3; ++b) N[a * 3 + b] += sp.coef_obj * nn[a] * nn[b];
+                // reaction on the object about the grid origin
+                const V3 tf = cross(rel, f);
+                float jn[DO];
+#pragma unroll
+                for (int d = 0; d < DO; ++d) {
+                    tau_o[d] -= dot(jv[d], f) + dot(jw[d], tf);
+                    jn[d] = dot(jv[d], n);
+                }
+#pragma unroll
+                for (int d = 0; d < DO; ++d)
+#pragma unroll
+                    for (int f2 = 0; f2 <= d; ++f2) Ao[d][f2] += sp.coef_obj * jn[d] * jn[f2];
+                if (id == KOFF + k) {
+                    sel_n = n;
+                    sel_fn = fn;
+                    sel_mu = mu_k;
+                    sel_vo = vo;
+#pragma unroll
+                    for (int d = 0; d < DO; ++d) {
+                        sel_jv[d] = jv[d];
+                        sel_jw[d] = jw[d];
+                    }
+                }
+            }
+            const bool on_grid = id >= KOFF;
+            const int ks = on_grid ? id - KOFF : 0;
+#else
+            const bool on_grid = false;
+            const int ks = 0;
+#endif
             // the selected contact
-            const bool on_box = id >= 2;
+            const bool on_box = id >= 2 && !on_grid;
+            const bool on_obj = id >= 2;
             const int gs = on_box ? id - 2 : 0;
-            const V3 n = on_box ? sel_n : v3(0.0f, 0.0f, 1.0f);
-            const float fn = on_box ? sel_fn : fn_g;
-            const float mu = on_box ? sel_mu : mu_g;
-            const V3 pvel = on_box ? sel_vo : v3(0.0f, 0.0f, 0.0f);
+            const V3 n = on_obj ? sel_n : v3(0.0f, 0.0f, 1.0f);
+            const float fn = on_obj ? sel_fn : fn_g;
+            const float mu = on_obj ? sel_mu : mu_g;
+            const V3 pvel = on_obj ? sel_vo : v3(0.0f, 0.0f, 0.0f);
             const V3 v_rel = v - pvel;
             const V3 vt = v_rel - dot(v_rel, n) * n;
 
@@ -565,6 +767,12 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
                     const int ga = min(anc_b[s] - 2, G - 1);
                     aw = quat_rotate(bq[ga], anc_p[s]) + bp[ga];
                 }
+#if FIS_K > 0
+                if (anc_b[s] >= KOFF) {
+                    const int ka = min(anc_b[s] - KOFF, K - 1);
+                    aw = quat_rotate(gq[ka], anc_p[s]) + gp[ka];
+                }
+#endif
                 V3 delta = c - aw;
                 V3 delta_t = delta - dot(delta, n) * n;
                 V3 ft_raw = same ? (-sp.anchor_ks) * delta_t - sp.anchor_cdt * vt
@@ -576,6 +784,9 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
                 ft = ft_raw * scale;
                 V3 new_w = stick ? aw : c + ft / sp.anchor_ks;
                 anc_p[s] = on_box ? quat_rotate_inv(bq[gs], new_w - bp[gs]) : new_w;
+#if FIS_K > 0
+                if (on_grid) anc_p[s] = quat_rotate_inv(gq[ks], new_w - gp[ks]);
+#endif
                 anc_b[s] = id;
                 ft = ft * sticky;
             } else {
@@ -598,6 +809,13 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
 #pragma unroll
                 for (int d = 0; d < DO; ++d) tau_o[d] -= dot(sel_jv[d], ft) + dot(sel_jw[d], tf);
             }
+#if FIS_K > 0
+            if (on_grid) {
+                const V3 tf = cross(c - gp[ks], ft);
+#pragma unroll
+                for (int d = 0; d < DO; ++d) tau_o[d] -= dot(sel_jv[d], ft) + dot(sel_jw[d], tf);
+            }
+#endif
             // robot joint space: tau += Jp^T F,  Ac += Jp^T N Jp
             const int li = sp.sph_link[s];
             V3 jp[D], Njp[D];
@@ -654,10 +872,18 @@ extern "C" {
 int fis_spec_bytes() { return (int)sizeof(Spec); }
 int fis_obj_bytes() { return (int)sizeof(ObjSpec); }
 int fis_state_rows() { return (int)FIS_NF; }
+#if FIS_K > 0
+int fis_grid_bytes() { return (int)sizeof(GridSpec); }
+int fis_dims(int which) {
+    const int dims[10] = {L, D, S, LO, DO, G, K, GX, GY, GZ};
+    return (which >= 0 && which < 10) ? dims[which] : -1;
+}
+#else
 int fis_dims(int which) {
     const int dims[6] = {L, D, S, LO, DO, G};
     return (which >= 0 && which < 6) ? dims[which] : -1;
 }
+#endif
 
 // Copy the robot / contact description into constant memory, ordered on
 // `stream`.
@@ -669,6 +895,25 @@ int fis_set_spec(const void* host_spec, int bytes, void* stream) {
     return (int)cudaGetLastError();
 }
 
+#if FIS_K > 0
+// Launch n_steps inner steps for E envs on `stream`; obj_table and
+// grid_table hold n_obj ObjSpec / GridSpec records on the device, obj_id[E]
+// picks one of each per env; the grid stack holds n_grid grids.  Returns
+// cudaGetLastError().
+int fis_launch(const void* in, const void* anc_b_in, void* out, void* anc_b_out,
+               const void* obj_table, const void* grid_table, const void* obj_id, int n_obj,
+               const void* grid_sdf, const void* grid_bbox, const void* grid_voxel, int n_grid,
+               int E, int n_steps, void* stream) {
+    if (E < 1 || n_steps < 0 || n_obj < 1 || n_grid < 1) return -1;
+    int blocks = (E + FIS_BLOCK - 1) / FIS_BLOCK;
+    GridStack st = {(const float*)grid_sdf, (const float*)grid_bbox, (const float*)grid_voxel};
+    fused_inner_step_obj_kernel<<<blocks, FIS_BLOCK, 0, (cudaStream_t)stream>>>(
+        (const float*)in, (const int*)anc_b_in, (float*)out, (int*)anc_b_out,
+        (const ObjSpec*)obj_table, (const GridSpec*)grid_table, st, (const int*)obj_id, E,
+        n_steps);
+    return (int)cudaGetLastError();
+}
+#else
 // Launch n_steps inner steps for E envs on `stream`; obj_table holds n_obj
 // ObjSpec records on the device, obj_id[E] picks one per env.  Returns
 // cudaGetLastError().
@@ -682,5 +927,6 @@ int fis_launch(const void* in, const void* anc_b_in, void* out, void* anc_b_out,
         (const ObjSpec*)obj_table, (const int*)obj_id, E, n_steps);
     return (int)cudaGetLastError();
 }
+#endif
 
 }  // extern "C"

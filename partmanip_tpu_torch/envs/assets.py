@@ -11,8 +11,9 @@ carrying the handle's 8-corner bbox and the joint axis.  This module both
 The generator writes the same bytes as the JAX package's, under the same
 version stamp and ``.generated`` marker, so both packages share one cache
 under ``<assetRoot>/objs/drawer/<split>`` without wiping each other's.
-Mesh collision geoms need the baked-SDF path (kernel B1c), which is not
-ported: loading an asset that has them raises ``NotImplementedError``.
+Mesh collision geoms are baked to SDF grids (:func:`mesh_sdf_cached`,
+cached next to the mesh) and collided by the engine's grid branch (kernel
+B1c on the GPU).
 
 bbox corner convention: ``out = b0−b4``, ``long = b1−b0``, ``short = b3−b0``,
 ``mid = (b0+b6)/2`` — corners in ±(out, long, short) binary order, front
@@ -75,11 +76,29 @@ def load_obj_mesh(path: str):
     return (np.asarray(verts, np.float32), np.asarray(faces, np.int32))
 
 
-def mesh_sdf_cached(path: str, scale: np.ndarray, voxel_size: float = None):
-    """Baked SDF grid of a mesh collision geom: not ported yet."""
-    raise NotImplementedError(
-        f"mesh collision geoms ({path}) need the baked-SDF contact path, "
-        f"which is not ported yet (ROADMAP Queue A: mesh collision / B1c)")
+def mesh_sdf_cached(path: str, scale: np.ndarray, voxel_size: float = None,
+                    device="cpu"):
+    """Baked SDF grid of a (scaled) mesh, cached next to it as .npy under
+    the JAX package's file name and dict layout ({'sdf', 'bbox_min',
+    'voxel_size'}), so either package reads the other's bake.  A missing
+    cache is baked on ``device``."""
+    from ..ops import sdf as sdf_ops
+    scale = np.asarray(scale, np.float32).reshape(-1)
+    if scale.size == 1:
+        scale = np.repeat(scale, 3)
+    verts, faces = load_obj_mesh(path)
+    verts = verts * scale[None]
+    extent = float((verts.max(0) - verts.min(0)).max())
+    if voxel_size is None:
+        voxel_size = float(np.clip(extent / 48.0, 0.003, 0.02))
+    tag = f".sdf_s{scale[0]:g}_{scale[1]:g}_{scale[2]:g}_v{voxel_size:g}.npy"
+    cache = path + tag
+    if os.path.exists(cache):
+        return np.load(cache, allow_pickle=True).item()
+    grid = sdf_ops.bake_mesh_sdf(verts, faces, voxel_size=voxel_size,
+                                 trunc=6.0 * voxel_size, device=device)
+    np.save(cache, grid)
+    return grid
 
 
 # ---------------------------------------------------------------------------
@@ -567,13 +586,15 @@ class DrawerObject:
 def load_drawer_object(asset_dir: str, obj_scale: float,
                        pad_links: int, pad_dofs: int,
                        max_boxes: int,
-                       dof_armature: float = 0.005) -> DrawerObject:
+                       dof_armature: float = 0.005,
+                       device="cpu") -> DrawerObject:
     """Parse one GAPartNet-layout asset dir into padded spec arrays
     (≙ ``open_drawer.preload_all_obj``, ``open_drawer.py:98-140``).
 
     The dir name encodes ``assetid-linkname-handlename-jointname-*``
     (``open_drawer.py:103``); ``obj_scale`` scales geometry and prismatic
     limits (``open_drawer.py:79``, ``set_actor_scale`` at ``:159``).
+    Mesh geoms missing a cached bake are baked on ``device``.
     """
     name = os.path.basename(asset_dir.rstrip("/"))
     parts = name.split("-")
@@ -622,7 +643,8 @@ def load_drawer_object(asset_dir: str, obj_scale: float,
     for m in parsed.meshes:
         try:
             grid = mesh_sdf_cached(m.filename,
-                                   np.asarray(m.scale, np.float32) * s)
+                                   np.asarray(m.scale, np.float32) * s,
+                                   device=device)
         except (OSError, ValueError) as e:
             print(f"WARNING: skipping mesh geom {m.filename}: {e}")
             continue

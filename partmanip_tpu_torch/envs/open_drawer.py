@@ -20,11 +20,13 @@ observation modes:
 * random reset ±0.05 m xyz, yaw quat (sin a, cos a) with a ∈ ±π/12.
 
 Every cabinet joint is simulated; only the per-env target dof feeds
-reward/obs.  Of the vision observation modes, ``depth_pc`` is ported
-(:mod:`vision`: the rig is built by ``_init_vision``, the observation added
-by ``_vision_obs`` after every reset and step); the other vision modes,
-mesh-handle assets and ``scene_pose`` are not ported yet and raise
-``NotImplementedError``.
+reward/obs.  ``asset.mesh_handle`` swaps the handle bars' collision boxes
+for mesh geoms, baked to SDF grids on the env's device (cached next to the
+meshes) and collided by the engine's grid branch (kernel B1c).  Of the
+vision observation modes, ``depth_pc`` is ported (:mod:`vision`: the rig is
+built by ``_init_vision``, the observation added by ``_vision_obs`` after
+every reset and step); the other vision modes and ``scene_pose`` are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,9 +39,10 @@ import numpy as np
 import torch
 
 from ..ops import rotations as rot
+from ..ops import sdf as sdf_ops
 from ..sim import builder, contact as contact_lib
 from ..sim import engine, franka, kinematics
-from ..sim.types import BoxGeoms, SimParams, TreeState, to_device
+from ..sim.types import BoxGeoms, GridGeoms, SimParams, TreeState, to_device
 from . import assets, base, control, vision
 from .base import STATE_OBS_MODES, EnvState, resolve_device
 
@@ -71,10 +74,6 @@ class OpenDrawerEnv:
             raise NotImplementedError(
                 "save_video needs the RGB renderer, which is not ported yet "
                 "(ROADMAP Queue A: remaining vision modes)")
-        if cfg["asset"].get("mesh_handle", False):
-            raise NotImplementedError(
-                "asset.mesh_handle=True needs baked-SDF mesh collision, which "
-                "is not ported yet (ROADMAP Queue A: mesh collision / B1c)")
 
         rcfg = cfg["robot"]
         mobile = "mobile" in rcfg["assetFile"]
@@ -93,8 +92,9 @@ class OpenDrawerEnv:
         # JAX package does), load padded ----
         split = cfg["asset"]["splits"]
         n_obj = cfg["asset"].get("num_objects", 16)
-        dirs = assets.ensure_drawer_assets(cfg["asset"]["assetRoot"], split,
-                                           n_obj)
+        dirs = assets.ensure_drawer_assets(
+            cfg["asset"]["assetRoot"], split, n_obj,
+            mesh_handle=cfg["asset"].get("mesh_handle", False))
         pyrandom.shuffle(dirs)
         parsed = [assets.parse_urdf(f"{d}/mobility_new.urdf") for d in dirs]
         max_links = max(len(p.links) for p in parsed)
@@ -102,7 +102,7 @@ class OpenDrawerEnv:
         max_boxes = max(len(p.boxes) for p in parsed)
         objs = [assets.load_drawer_object(
             d, self.obj_scale, pad_links=max_links, pad_dofs=max_dofs,
-            max_boxes=max_boxes) for d in dirs]
+            max_boxes=max_boxes, device=self.device) for d in dirs]
         self.objs = objs
         self.num_objects = len(objs)
 
@@ -133,13 +133,43 @@ class OpenDrawerEnv:
             friction=np.ones((E, max_boxes), np.float32),
         )
 
+        # mesh-SDF collision geoms (the mesh-handle assets): K geoms per
+        # env (padded, masked), their grids stacked once for all objects
+        obj_grids = grid_stack = None
+        max_K = max(len(o.grids_link_idx) for o in objs)
+        if max_K > 0:
+            grid_dicts = []
+            glink = np.zeros((self.num_objects, max_K), np.int32)
+            ggid = np.zeros((self.num_objects, max_K), np.int32)
+            gpos = np.zeros((self.num_objects, max_K, 3), np.float32)
+            gquat = np.tile(np.array([0, 0, 0, 1], np.float32),
+                            (self.num_objects, max_K, 1))
+            gmask = np.zeros((self.num_objects, max_K), np.float32)
+            for i, o in enumerate(objs):
+                for k in range(len(o.grids_link_idx)):
+                    glink[i, k] = o.grids_link_idx[k]
+                    ggid[i, k] = len(grid_dicts)
+                    grid_dicts.append(o.grid_dicts[k])
+                    gpos[i, k] = o.grids_pos[k]
+                    gquat[i, k] = o.grids_quat[k]
+                    gmask[i, k] = 1.0
+            trunc = 6.0 * max(g["voxel_size"] for g in grid_dicts)
+            grid_stack = sdf_ops.stack_grids(grid_dicts, pad_value=trunc,
+                                             device=self.device)
+            obj_grids = to_device(GridGeoms(
+                link_idx=glink[obj_ids], grid_id=ggid[obj_ids],
+                offset_pos=gpos[obj_ids], offset_quat=gquat[obj_ids],
+                geom_mask=gmask[obj_ids],
+                friction=np.ones((E, max_K), np.float32)), self.device)
+
         # specs become tensors on the device once, here
         self.spheres = to_device(spheres, self.device)
         self.scene = engine.SceneSpec(
             robot=to_device(self.built.spec, self.device),
             spheres=self.spheres, params=sim_params,
             obj_tree=to_device(obj_spec_env, self.device),
-            obj_boxes=to_device(boxes, self.device))
+            obj_boxes=to_device(boxes, self.device),
+            obj_grids=obj_grids, grid_stack=grid_stack)
         engine.check_supported(self.scene)
 
         # per-env part annotations

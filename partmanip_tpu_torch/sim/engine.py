@@ -2,7 +2,8 @@
 
 Counterpart of ``partmanip_tpu/sim/engine.py`` for scenes made of the
 articulated robot, the ground, and either a free body (the cube) or an
-articulated object with box collision geoms (the cabinet), with SDF penalty
+articulated object with box collision geoms and, optionally, baked mesh-SDF
+collision geoms (the cabinet; its mesh handles), with SDF penalty
 contacts.  :func:`_inner_step` is the plain PyTorch version of the fused CUDA
 kernels in :mod:`fused`: it runs when the state lies on the CPU and is what
 the kernels are held against on the GPU.  State on a CUDA device always goes
@@ -22,6 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops import rotations as rot
+from ..ops import sdf as sdf_ops
 from . import contact, dynamics, kinematics
 from .types import (BoxGeoms, FreeBodySpec, FreeBodyState, GridGeoms,
                     HostCache, SimParams, SphereGeoms, TreeSpec, TreeState)
@@ -54,8 +56,8 @@ class SceneState(NamedTuple):
 
 def check_supported(scene: SceneSpec) -> None:
     """Raise with the reason when the scene has a part the port does not
-    simulate yet (the mesh-SDF branch of the JAX engine and the
-    velocity-product terms)."""
+    simulate yet (the velocity-product terms) or a part without what it
+    needs."""
     if scene.params.coriolis:
         raise NotImplementedError(
             "sim.coriolis=True is not ported yet (ROADMAP Queue A: tooling "
@@ -65,10 +67,15 @@ def check_supported(scene: SceneSpec) -> None:
             "an articulated object needs both its tree and its collision "
             "boxes (obj_tree and obj_boxes); one without the other is not "
             "a scene the engine simulates")
-    if scene.obj_grids is not None or scene.grid_stack is not None:
+    if (scene.obj_grids is None) != (scene.grid_stack is None):
         raise NotImplementedError(
-            "mesh-SDF collision geoms (obj_grids) are not ported yet "
-            "(ROADMAP Queue A: mesh collision, kernel B1c)")
+            "mesh-SDF collision geoms (obj_grids) need their grid stack "
+            "(grid_stack), and a grid stack its geoms; one without the other "
+            "is not a scene the engine simulates")
+    if scene.obj_grids is not None and scene.obj_tree is None:
+        raise NotImplementedError(
+            "mesh-SDF collision geoms (obj_grids) ride on an articulated "
+            "object's tree; the scene has none")
 
 
 def _nnT(normal, coef):
@@ -114,7 +121,7 @@ def _inner_step(scene: SceneSpec, state: SceneState, pos_targets, h,
         return touching * (h * cd + h * h * p.contact_kn)
 
     # Per-sphere best-partner bookkeeping for the stick-slip anchors:
-    # partner ids: 0 ground, 1 cube, 2+g object box g.
+    # partner ids: 0 ground, 1 cube, 2+g object box g, 2+G+k grid geom k.
     best_depth = torch.full((E, S), 1e9, device=dev)
     best = {
         "id": torch.full((E, S), -1, dtype=torch.int32, device=dev),
@@ -234,6 +241,80 @@ def _inner_step(scene: SceneSpec, state: SceneState, pos_targets, h,
                              imp_coef(t_osg, 0.3), n_osg, n_osg)
         obj_reaction = (tau_o, Jv_box, N_box)
 
+    # 3b) robot vs baked mesh-SDF geoms on the object tree.  Same penalty
+    # and implicit treatment as the boxes, with an impulse budget of their
+    # own; the trilinear gradient supplies the contact normal.
+    KOFF = 2 + G                       # partner ids of grid geoms start here
+    K = 0
+    if scene.obj_grids is not None:
+        gg = scene.obj_grids
+        K = gg.link_idx.shape[-1]
+        glink = gg.link_idx.expand(E, K)
+        gp, gq = rot.transform_compose(
+            kinematics._take_env(fk_o.link_pos, glink),
+            kinematics._take_env(fk_o.link_quat, glink),
+            gg.offset_pos.expand(E, K, 3), gg.offset_quat.expand(E, K, 4))
+        J6g = kinematics.frame_jacobian(scene.obj_tree, fk_o, glink)
+        Jw_g = J6g[:, :, 3:, :]
+        r_gl = gp - kinematics._take_env(fk_o.link_pos, glink)
+        Jv_g = J6g[:, :, :3, :] + rot._cross(
+            Jw_g.transpose(-1, -2), r_gl[:, :, None, :]).transpose(-1, -2)
+        qv_o = state.obj.qvel
+        v_gc = torch.einsum("ekad,ed->eka", Jv_g, qv_o)
+        w_g = torch.einsum("ekad,ed->eka", Jw_g, qv_o)
+
+        relg = centers[:, :, None, :] - gp[:, None, :, :]       # [E,S,K,3]
+        gq_b = gq[:, None].expand(E, S, K, 4)
+        p_locg = rot.quat_rotate_inverse(gq_b, relg)
+        gid = gg.grid_id.expand(E, K)[:, None, :].expand(E, S, K)
+        val, grad = sdf_ops.grid_query_grad(scene.grid_stack, gid, p_locg,
+                                            outside_value=1.0)
+        gnorm = torch.linalg.norm(grad, dim=-1)
+        n_locg = grad / torch.clamp(gnorm, min=1e-9)[..., None]
+        n_g2 = rot.quat_rotate(gq_b, n_locg)                    # [E,S,K,3]
+        depth_g2 = val - radii[None, :, None]
+        v_og = v_gc[:, None] + rot._cross(w_g[:, None], relg)
+        mu_g2 = 0.5 * (mu_s[None, :, None] + gg.friction.expand(E, K)[:, None, :])
+        act_g2 = (gg.geom_mask.expand(E, K)[:, None, :]
+                  * (gnorm > 1e-6).to(gnorm.dtype))
+        cs_g2 = contact.ContactSet(
+            point=centers[:, :, None, :].expand(E, S, K, 3).reshape(E, S * K, 3),
+            normal=n_g2.reshape(E, S * K, 3),
+            depth=depth_g2.reshape(E, S * K),
+            active=act_g2.reshape(E, S * K),
+            sphere_idx=torch.arange(S, device=dev)[None, :, None].expand(
+                E, S, K).reshape(E, S * K),
+            friction=mu_g2.reshape(E, S * K),
+            v_other=v_og.reshape(E, S * K, 3),
+        )
+        vs_g2 = v_s[:, :, None, :].expand(E, S, K, 3).reshape(E, -1, 3)
+        # one impulse budget over all S×K grid pairs of the env
+        f_g2, fn_g2, t_g2 = contact.penalty_forces(cs_g2, vs_g2, p, 0.3)
+        f_skc = f_g2.reshape(E, S, K, 3)
+        t_skc = t_g2.reshape(E, S, K)
+        F_sphere = F_sphere + torch.sum(f_skc, dim=2)
+        N_sphere = N_sphere + torch.einsum(
+            "esk,eska,eskb->esab", imp_coef(t_skc, 0.3), n_g2, n_g2)
+        # best grid per sphere for the anchors (first minimum)
+        masked_dk = torch.where(t_skc > 0, depth_g2, 1e9)
+        kbest = torch.argmin(masked_dk, dim=-1)                 # [E, S]
+        take_k = lambda a: torch.gather(
+            a, 2, kbest.reshape(E, S, 1, *([1] * (a.ndim - 3))).expand(
+                E, S, 1, *a.shape[3:]))[:, :, 0]
+        consider(take_k(depth_g2), (KOFF + kbest).to(torch.int32),
+                 take_k(n_g2), take_k(fn_g2.reshape(E, S, K)), take_k(mu_g2),
+                 (take_k(masked_dk) < 0).to(centers.dtype), take_k(v_og))
+        # reactions on the object through the grid-link Jacobians
+        F_gr = -torch.sum(f_skc, dim=1)
+        T_gr = -torch.sum(rot._cross(relg, f_skc), dim=1)
+        tau_gr = (torch.einsum("ekad,eka->ed", Jv_g, F_gr)
+                  + torch.einsum("ekad,eka->ed", Jw_g, T_gr))
+        N_gr = torch.einsum("esk,eska,eskb->ekab",
+                            imp_coef(t_skc, 0.3), n_g2, n_g2)
+        tau_o0, Jv0, N0 = obj_reaction
+        obj_reaction = (tau_o0 + tau_gr, torch.cat([Jv0, Jv_g], dim=1),
+                        torch.cat([N0, N_gr], dim=1))
+
     # ---- stick-slip tangential friction via anchors ----
     anchors = state.anchors
     if anchors is None:
@@ -249,8 +330,13 @@ def _inner_step(scene: SceneSpec, state: SceneState, pos_targets, h,
             g = torch.clamp(pid.long() - 2, 0, G - 1)
             box_w = (rot.quat_rotate(_box_gather(bq, g), local)
                      + _box_gather(bp, g))
-            out = torch.where(((pid >= 2) & (pid < 2 + G))[..., None],
+            out = torch.where(((pid >= 2) & (pid < KOFF))[..., None],
                               box_w, out)
+        if K > 0:
+            k = torch.clamp(pid.long() - KOFF, 0, K - 1)
+            grid_w = (rot.quat_rotate(_box_gather(gq, k), local)
+                      + _box_gather(gp, k))
+            out = torch.where((pid >= KOFF)[..., None], grid_w, out)
         return out
 
     def to_local(world, pid):
@@ -263,8 +349,13 @@ def _inner_step(scene: SceneSpec, state: SceneState, pos_targets, h,
             g = torch.clamp(pid.long() - 2, 0, G - 1)
             box_l = rot.quat_rotate_inverse(_box_gather(bq, g),
                                             world - _box_gather(bp, g))
-            out = torch.where(((pid >= 2) & (pid < 2 + G))[..., None],
+            out = torch.where(((pid >= 2) & (pid < KOFF))[..., None],
                               box_l, out)
+        if K > 0:
+            k = torch.clamp(pid.long() - KOFF, 0, K - 1)
+            grid_l = rot.quat_rotate_inverse(_box_gather(gq, k),
+                                             world - _box_gather(gp, k))
+            out = torch.where((pid >= KOFF)[..., None], grid_l, out)
         return out
 
     sticky = scene.spheres.sticky[None].expand(E, S)
@@ -317,6 +408,17 @@ def _inner_step(scene: SceneSpec, state: SceneState, pos_targets, h,
         tau_o_f, Jp_o, N_o = obj_reaction
         tau_o_f = tau_o_f + (torch.einsum("egad,ega->ed", Jv_box, F_fric)
                              + torch.einsum("egad,ega->ed", Jw_box, T_fric))
+        obj_reaction = (tau_o_f, Jp_o, N_o)
+    if K > 0:
+        onehot_k = (best["id"][..., None] - KOFF == torch.arange(
+            K, device=dev)[None, None]).to(ft.dtype)           # [E, S, K]
+        F_fk = -torch.einsum("esk,esa->eka", onehot_k, ft)
+        r_sk = centers[:, :, None, :] - gp[:, None, :, :]
+        T_fk = -torch.einsum("esk,eska->eka", onehot_k,
+                             rot._cross(r_sk, ft[:, :, None, :]))
+        tau_o_f, Jp_o, N_o = obj_reaction
+        tau_o_f = tau_o_f + (torch.einsum("ekad,eka->ed", Jv_g, F_fk)
+                             + torch.einsum("ekad,eka->ed", Jw_g, T_fk))
         obj_reaction = (tau_o_f, Jp_o, N_o)
 
     implicit = dynamics.ImplicitBlocks(Jp=Jp_s, N=N_sphere)

@@ -1,16 +1,19 @@
 """Wrapper of the fused physics inner-step CUDA kernels: variant B1a (robot
-+ ground + one free box, grasp_cube) and variant B1b (robot + ground + one
-articulated object with box geoms, open_drawer).
++ ground + one free box, grasp_cube), variant B1b (robot + ground + one
+articulated object with box geoms, open_drawer) and variant B1c (B1b plus
+baked mesh-SDF geoms on the object, open_drawer with mesh handles).
 
 Counterpart of ``partmanip_tpu/sim/fused.py`` (``fused_physics_step`` around
-the Pallas kernel ``_inner_step_tiled``, whose ``has_body`` / ``has_obj``
-variants become two kernels here).  The kernel sources are
+the Pallas kernel ``_inner_step_tiled``, whose ``has_body`` / ``has_obj`` /
+``n_grid > 0`` variants become kernels here; the TPU build's separate grid
+narrowphase ``_grid_narrowphase`` runs inside B1c).  The kernel sources are
 ``csrc/fused_inner_step.cu`` (B1a) and ``csrc/fused_inner_step_obj.cu``
-(B1b), sharing ``csrc/fused_common.cuh``; each is compiled with ``nvcc`` for
-``sm_90a`` at first use into a shared library with a plain C interface,
-keyed on every compile-time size, and loaded with ``ctypes``
-(``utils/cuda_lib.py``, shared by every kernel of the port).  Nothing here
-needs ``nvcc`` or a GPU at import time.
+(B1b; B1c is the same file compiled with ``FIS_K > 0``), sharing
+``csrc/fused_common.cuh``; each is compiled with ``nvcc`` for ``sm_90a`` at
+first use into a shared library with a plain C interface, keyed on every
+compile-time size, and loaded with ``ctypes`` (``utils/cuda_lib.py``, shared
+by every kernel of the port).  Nothing here needs ``nvcc`` or a GPU at
+import time.
 
 * :func:`fused_physics_step` — what ``engine.physics_step`` calls: all
   ``substeps × inner_substeps`` inner steps of one physics step in ONE
@@ -31,7 +34,9 @@ The robot and the contact constants go to the kernel's ``__constant__``
 struct (one robot for all envs).  B1b's object differs between envs: the
 per-env object spec is reduced on the host, once per scene, to a table of
 its distinct rows (one ``ObjSpec`` record each) plus an object id per env,
-both uploaded to device memory.
+both uploaded to device memory.  B1c adds a ``GridSpec`` record per distinct
+object (the mesh geoms, same id) and reads the scene's grid stack, which
+already lies on the device.
 """
 
 from __future__ import annotations
@@ -49,11 +54,15 @@ from .types import FreeBodyState, HostCache, TreeState
 
 KERNEL_SOURCE = os.path.join(cuda_lib.CSRC, "fused_inner_step.cu")          # B1a
 KERNEL_SOURCE_OBJ = os.path.join(cuda_lib.CSRC, "fused_inner_step_obj.cu")  # B1b
-KERNEL_SOURCES = {"b1a": KERNEL_SOURCE, "b1b": KERNEL_SOURCE_OBJ}
+# B1c is B1b's source compiled with FIS_K > 0
+KERNEL_SOURCES = {"b1a": KERNEL_SOURCE, "b1b": KERNEL_SOURCE_OBJ, "b1c": KERNEL_SOURCE_OBJ}
+DIM_NAMES = ("L", "D", "S", "Lo", "Do", "G", "K", "X", "Y", "Z")
+DIM_MACROS = ("FIS_L", "FIS_D", "FIS_S", "FIS_LO", "FIS_DO", "FIS_G", "FIS_K",
+              "FIS_GX", "FIS_GY", "FIS_GZ")
 
 # Number of kernel launches made by this module since import / the last
 # reset, per variant.
-launch_counts = cuda_lib.launch_counter("b1a", "b1b")
+launch_counts = cuda_lib.launch_counter("b1a", "b1b", "b1c")
 
 _PACKED = HostCache()  # scene.robot.parent tensor -> {key, packed Spec, ...}
 _UPLOADED = {}        # (variant, sizes) -> id of the packed spec in constant memory
@@ -63,19 +72,23 @@ def library(variant: str, dims) -> cuda_lib.Library:
     """``variant``'s kernel library for these array sizes (every
     compile-time size is a macro and is in the library's name)."""
     dims = tuple(int(d) for d in dims)
-    tag = "_".join(f"{n}{d}" for n, d in zip(("L", "D", "S", "Lo", "Do", "G"), dims))
+    tag = "_".join(f"{n}{d}" for n, d in zip(DIM_NAMES, dims))
     stem = os.path.splitext(os.path.basename(KERNEL_SOURCES[variant]))[0]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     sig = {"fis_spec_bytes": ((), i32), "fis_state_rows": ((), i32),
            "fis_dims": ((i32,), i32), "fis_set_spec": ((ptr, i32, ptr), i32)}
     if variant == "b1a":
         sig["fis_launch"] = ((ptr, ptr, ptr, ptr, i32, i32, ptr), i32)
-    else:
+    elif variant == "b1b":
         sig["fis_obj_bytes"] = ((), i32)
         sig["fis_launch"] = ((ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr), i32)
-    macros = ("FIS_L", "FIS_D", "FIS_S", "FIS_LO", "FIS_DO", "FIS_G")
+    else:
+        sig["fis_obj_bytes"] = ((), i32)
+        sig["fis_grid_bytes"] = ((), i32)
+        sig["fis_launch"] = ((ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, i32,
+                              i32, i32, ptr), i32)
     return cuda_lib.Library(variant, KERNEL_SOURCES[variant], f"lib{stem}_{tag}.so",
-                            sig, defines=zip(macros, dims))
+                            sig, defines=zip(DIM_MACROS, dims))
 
 
 # ----------------------------------------------------------------------
@@ -105,12 +118,37 @@ def check_scene(scene: engine.SceneSpec) -> None:
             raise NotImplementedError(
                 "kernel B1b keeps a sphere's touching boxes in a 32-bit "
                 "mask: at most 32 object boxes")
+        if scene.obj_grids is not None:
+            _check_grids(scene)
         return
     for name, leaf in zip(scene.free_body._fields, scene.free_body):
         if leaf.shape[0] != 1:
             raise NotImplementedError(
                 f"the fused kernel needs a shared free body spec "
                 f"(free_body.{name} has env axis {leaf.shape[0]})")
+
+
+def _check_grids(scene: engine.SceneSpec) -> None:
+    """Raise with the reason when kernel B1c cannot run the scene's mesh-SDF
+    geoms and grid stack."""
+    gg, st = scene.obj_grids, scene.grid_stack
+    if gg.link_idx.shape[-1] > 32:
+        raise NotImplementedError(
+            "kernel B1c keeps a sphere's touching grid geoms in a 32-bit "
+            "mask: at most 32 mesh geoms per object")
+    if st.sdf.dim() != 4 or min(st.sdf.shape[1:]) < 3:
+        raise NotImplementedError(
+            f"kernel B1c needs a grid stack [M, X, Y, Z] with X, Y, Z >= 3 "
+            f"(interior cells to interpolate in), got {tuple(st.sdf.shape)}")
+    M = st.sdf.shape[0]
+    if st.bbox_min.shape != (M, 3) or st.voxel_size.shape != (M,):
+        raise NotImplementedError(
+            f"grid stack fields disagree: sdf {tuple(st.sdf.shape)}, bbox_min "
+            f"{tuple(st.bbox_min.shape)}, voxel_size {tuple(st.voxel_size.shape)}")
+    if any(x.dtype != torch.float32 or not x.is_contiguous() for x in st):
+        raise NotImplementedError("kernel B1c reads a contiguous f32 grid stack")
+    if st.sdf.numel() >= 2 ** 31:
+        raise NotImplementedError("kernel B1c indexes the grid stack with 32-bit cell offsets")
 
 
 def _i32(x):
@@ -198,11 +236,14 @@ def pack_spec_obj(scene: engine.SceneSpec) -> np.ndarray:
 
 def pack_obj_table(scene: engine.SceneSpec):
     """The per-env articulated object as kernel B1b's ``ObjSpec`` records:
-    ``(table f32 [n_obj, words], obj_id i32 [E])``, one record per distinct
-    object, with ``table[obj_id]`` equal to the per-env spec it was made
-    from (checked)."""
-    o, b = scene.obj_tree, scene.obj_boxes
-    E = max(leaf.shape[0] for leaf in (*o, *b))
+    ``(tables, obj_id i32 [E])`` with ``tables = (f32 [n_obj, words],)``,
+    one record per distinct object, ``tables[0][obj_id]`` equal to the
+    per-env spec it was made from (checked).  With mesh-SDF geoms (B1c)
+    ``tables`` also holds each object's ``GridSpec`` record:
+    ``(objs, grids)``, indexed by the same ``obj_id``."""
+    o, b, gg = scene.obj_tree, scene.obj_boxes, scene.obj_grids
+    leaves = (*o, *b) if gg is None else (*o, *b, *gg)
+    E = max(leaf.shape[0] for leaf in leaves)
     if float(o.gravity_scale.abs().max()) != 0.0:
         raise NotImplementedError(
             "kernel B1b assumes object gravity_scale == 0 (the cabinet's "
@@ -229,6 +270,16 @@ def pack_obj_table(scene: engine.SceneSpec):
         f32(b.offset_pos), f32(b.offset_quat), f32(b.half_extents),
         f32(b.geom_mask), f32(b.friction),
     ]
+    n_obj_words = sum(c.shape[1] for c in cols)
+    if gg is not None:
+        gmask = _f32(gg.geom_mask)
+        if not np.all((gmask == 0.0) | (gmask == 1.0)):
+            raise NotImplementedError("kernel B1c takes mesh geom masks of 0 or 1 only")
+        gid, M = _i32(gg.grid_id).view(np.int32), scene.grid_stack.sdf.shape[0]
+        if gid.min() < 0 or gid.max() >= M:
+            raise NotImplementedError(f"grid ids outside the stack of {M} grids")
+        cols += [i32(gg.link_idx), i32(gg.grid_id), f32(gg.offset_pos),
+                 f32(gg.offset_quat), f32(gg.geom_mask), f32(gg.friction)]
     rows = np.ascontiguousarray(np.concatenate(cols, axis=1))
     # distinct records, compared bit for bit
     table, obj_id = np.unique(rows.view(np.int32), axis=0, return_inverse=True)
@@ -236,7 +287,9 @@ def pack_obj_table(scene: engine.SceneSpec):
     obj_id = obj_id.reshape(-1).astype(np.int32)
     if not np.array_equal(table[obj_id].view(np.int32), rows.view(np.int32)):
         raise RuntimeError("object table does not reproduce the per-env spec")
-    return table, obj_id
+    tables = (table,) if gg is None else (np.ascontiguousarray(table[:, :n_obj_words]),
+                                          np.ascontiguousarray(table[:, n_obj_words:]))
+    return tables, obj_id
 
 
 def _packed(scene: engine.SceneSpec) -> dict:
@@ -247,14 +300,16 @@ def _packed(scene: engine.SceneSpec) -> dict:
     key = (scene.params, id(scene.spheres.link_idx),
            None if scene.free_body is None else id(scene.free_body.mass),
            None if scene.obj_tree is None else (id(scene.obj_tree.parent),
-                                                id(scene.obj_boxes.link_idx)))
+                                                id(scene.obj_boxes.link_idx)),
+           None if scene.obj_grids is None else (id(scene.obj_grids.link_idx),
+                                                 id(scene.grid_stack.sdf)))
     if slot.get("key") != key:
         slot.clear()
         if variant(scene) == "b1a":
             slot.update(key=key, spec=pack_spec(scene))
         else:
-            table, obj_id = pack_obj_table(scene)
-            slot.update(key=key, spec=pack_spec_obj(scene), table=table,
+            tables, obj_id = pack_obj_table(scene)
+            slot.update(key=key, spec=pack_spec_obj(scene), tables=tables,
                         obj_id=obj_id, device={})
     return slot
 
@@ -265,20 +320,27 @@ def _packed_spec(scene: engine.SceneSpec) -> np.ndarray:
 
 
 def variant(scene: engine.SceneSpec) -> str:
-    """The kernel that runs this scene: B1b with an articulated object, B1a
-    (free body) otherwise."""
+    """The kernel that runs this scene: B1c with mesh-SDF geoms, B1b with an
+    articulated object, B1a (free body) otherwise."""
+    if scene.obj_grids is not None:
+        return "b1c"
     return "b1a" if scene.obj_tree is None else "b1b"
 
 
 def _dims(scene: engine.SceneSpec):
     """The kernel's compile-time sizes: (L, D, S) for B1a, (L, D, S, Lo, Do,
-    G) for B1b."""
+    G) for B1b, and for B1c also K and the grid stack's (X, Y, Z)."""
     dims = (scene.robot.num_links, scene.robot.num_dofs,
             scene.spheres.link_idx.shape[0])
-    if variant(scene) == "b1a":
+    kind = variant(scene)
+    if kind == "b1a":
         return dims
-    return dims + (scene.obj_tree.num_links, scene.obj_tree.num_dofs,
-                   scene.obj_boxes.link_idx.shape[-1])
+    dims += (scene.obj_tree.num_links, scene.obj_tree.num_dofs,
+             scene.obj_boxes.link_idx.shape[-1])
+    if kind == "b1b":
+        return dims
+    return dims + (scene.obj_grids.link_idx.shape[-1],
+                   *scene.grid_stack.sdf.shape[1:])
 
 
 def state_rows(D: int, S: int) -> int:
@@ -380,11 +442,16 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
         raise RuntimeError(
             f"packing disagrees with the kernel: spec {spec.nbytes} vs "
             f"{lib.fis_spec_bytes()} bytes, rows {rows} vs {lib.fis_state_rows()}")
-    if kind == "b1b":
-        table = packed["table"]
-        if table.shape[1] * 4 != lib.fis_obj_bytes():
+    if kind != "b1a":
+        tables = packed["tables"]
+        if kind == "b1c":
+            if tables[1].shape[1] * 4 != lib.fis_grid_bytes():
+                raise RuntimeError(
+                    f"grid packing disagrees with the kernel: {tables[1].shape[1] * 4}"
+                    f" vs {lib.fis_grid_bytes()} bytes per record")
+        if tables[0].shape[1] * 4 != lib.fis_obj_bytes():
             raise RuntimeError(
-                f"object packing disagrees with the kernel: {table.shape[1] * 4}"
+                f"object packing disagrees with the kernel: {tables[0].shape[1] * 4}"
                 f" vs {lib.fis_obj_bytes()} bytes per record")
         if packed["obj_id"].shape[0] != E:
             raise ValueError(f"the scene has {packed['obj_id'].shape[0]} envs, "
@@ -392,8 +459,13 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
         on_dev = packed["device"].get(buf.device)
         if on_dev is None:
             on_dev = packed["device"][buf.device] = (
-                torch.as_tensor(table, device=buf.device),
+                [torch.as_tensor(t, device=buf.device) for t in tables],
                 torch.as_tensor(packed["obj_id"], device=buf.device))
+        if kind == "b1c":
+            stack = scene.grid_stack
+            if any(x.device != buf.device for x in stack):
+                raise ValueError(f"the grid stack lies on {stack.sdf.device}, "
+                                 f"the state on {buf.device}")
     with torch.cuda.device(buf.device):
         stream = torch.cuda.current_stream().cuda_stream
         if _UPLOADED.get((kind, dims)) != id(spec):
@@ -406,11 +478,19 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
         if kind == "b1a":
             err = lib.fis_launch(buf.data_ptr(), anc_b.data_ptr(), out.data_ptr(),
                                  anc_out.data_ptr(), E, int(n_steps), stream)
-        else:
-            table_t, ids_t = on_dev
+        elif kind == "b1b":
+            (table_t,), ids_t = on_dev
             err = lib.fis_launch(buf.data_ptr(), anc_b.data_ptr(), out.data_ptr(),
                                  anc_out.data_ptr(), table_t.data_ptr(),
                                  ids_t.data_ptr(), table_t.shape[0], E,
+                                 int(n_steps), stream)
+        else:
+            (table_t, grid_t), ids_t = on_dev
+            err = lib.fis_launch(buf.data_ptr(), anc_b.data_ptr(), out.data_ptr(),
+                                 anc_out.data_ptr(), table_t.data_ptr(),
+                                 grid_t.data_ptr(), ids_t.data_ptr(), table_t.shape[0],
+                                 stack.sdf.data_ptr(), stack.bbox_min.data_ptr(),
+                                 stack.voxel_size.data_ptr(), stack.sdf.shape[0], E,
                                  int(n_steps), stream)
     cuda_lib.check_launch(err, f"fused_inner_step ({kind})")
     launch_counts[kind] += 1

@@ -125,8 +125,9 @@ class BoxGeoms(NamedTuple):
 
 
 class GridGeoms(NamedTuple):
-    """Baked mesh-SDF collision geoms attached to articulation links.
-    Data only: no scene of the port uses them yet."""
+    """Baked mesh-SDF collision geoms attached to articulation links.  The
+    grids themselves live in a shared ``ops.sdf.GridStack``
+    (``SceneSpec.grid_stack``); each geom references one by index."""
 
     link_idx: Tensor     # i32 [E?, K]
     grid_id: Tensor      # i32 [E?, K] index into the scene grid stack

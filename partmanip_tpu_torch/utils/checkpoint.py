@@ -9,10 +9,11 @@ the reader decides the device.
 A checkpoint of the JAX package is a pickle whose leaves are numpy arrays,
 held in the JAX package's ``ACParams`` / ``RMSState`` named tuples beside
 optax optimizer states.  :func:`load_jax` reads it with a restricted
-unpickler that maps those two classes to local stand-ins, drops the optax
-states and refuses every other class, so it imports nothing of JAX, optax
-or the JAX package; ``utils/convert.py`` turns the result into the port's
-modules.
+unpickler that maps those classes and the optax states it knows (the
+``inject_hyperparams`` wrapper, ``ScaleByAdamState``, ``EmptyState``) to
+local stand-ins and refuses every other class, so it imports nothing of JAX,
+optax or the JAX package; ``utils/convert.py`` turns the result into the
+port's modules and Adam moments.
 """
 
 from __future__ import annotations
@@ -69,19 +70,36 @@ class JaxRMSState(NamedTuple):
     S: Any
 
 
-class _Dropped(tuple):
-    """Stand-in of an optax optimizer state: read and thrown away."""
+class JaxInjectState(NamedTuple):
+    """Stand-in of optax's ``InjectStatefulHyperparamsState`` (the state of
+    ``optax.inject_hyperparams``)."""
 
-    def __new__(cls, *args, **kwargs):
-        return super().__new__(cls)
+    count: Any
+    hyperparams: Any
+    hyperparams_states: Any
+    inner_state: Any
 
-    def __setstate__(self, state):
-        pass
+
+class JaxAdamState(NamedTuple):
+    """Stand-in of optax's ``ScaleByAdamState``: the step count and the two
+    moments, trees shaped like the parameters."""
+
+    count: Any
+    mu: Any
+    nu: Any
+
+
+class JaxEmptyState(NamedTuple):
+    """Stand-in of optax's ``EmptyState`` (clip_by_global_norm, scale)."""
 
 
 _STANDINS = {
     ("partmanip_tpu.models.actor_critic", "ACParams"): JaxACParams,
     ("partmanip_tpu.algos.rms", "RMSState"): JaxRMSState,
+    ("optax.schedules._inject", "InjectStatefulHyperparamsState"): JaxInjectState,
+    ("optax.schedules._inject", "InjectHyperparamsState"): JaxInjectState,
+    ("optax._src.transform", "ScaleByAdamState"): JaxAdamState,
+    ("optax._src.base", "EmptyState"): JaxEmptyState,
 }
 # numpy's array / dtype / scalar reconstructors, under numpy 1.x and 2.x names
 _NUMPY = {("numpy", "ndarray"), ("numpy", "dtype"),
@@ -95,8 +113,6 @@ class _JaxUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if (module, name) in _STANDINS:
             return _STANDINS[(module, name)]
-        if module == "optax" or module.startswith("optax."):
-            return _Dropped
         if (module, name) in _NUMPY:
             try:
                 mod = importlib.import_module(module)
@@ -120,9 +136,26 @@ def is_jax_checkpoint(path: str) -> bool:
 def load_jax(path: str) -> dict:
     """The dict a JAX ``PPO.save`` wrote, with ``params`` a
     :class:`JaxACParams`, ``rms`` a :class:`JaxRMSState` and the optimizer
-    states dropped (``None``)."""
+    states ``opt_actor`` / ``opt_critic`` as :class:`JaxInjectState`."""
     with open(path, "rb") as f:
         d = _JaxUnpickler(f).load()
     if not isinstance(d, dict) or not isinstance(d.get("params"), JaxACParams):
         raise ValueError(f"{path} is not a PPO checkpoint of the JAX package")
-    return {k: (None if isinstance(v, _Dropped) else v) for k, v in d.items()}
+    return d
+
+
+def jax_adam_state(opt_state) -> JaxAdamState:
+    """The one ``ScaleByAdamState`` inside a JAX optimizer state (optax's
+    chain of the optional clip and Adam, inside ``inject_hyperparams``)."""
+    found = []
+
+    def walk(x):
+        if isinstance(x, JaxAdamState):
+            found.append(x)
+        elif isinstance(x, tuple):
+            for y in x:
+                walk(y)
+    walk(opt_state.inner_state if isinstance(opt_state, JaxInjectState) else opt_state)
+    if len(found) != 1:
+        raise ValueError(f"expected one Adam state in the optimizer state, found {len(found)}")
+    return found[0]

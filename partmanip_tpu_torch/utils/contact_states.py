@@ -19,7 +19,13 @@ open_drawer (:func:`drawer_contact_states`), by ``env % 4``:
   (a sphere touching two boxes at once);
 * 2 — the gripper pushed through the bar toward the drawer front (bar and
   front panel at once);
-* 3 — the robot lowered until its finger pads press into the **ground**.
+* 3 — the robot lowered until its finger pads press into the **ground**;
+* 4 (mesh-handle scenes only, ``env % 5``) — a finger pad hooked just
+  behind the bar's **back face** (toward the panel), overlapping it by
+  0.8 of its radius: the SDF gradient there is along the drawer axis, so
+  the contact pulls the drawer (the case of the JAX package's
+  ``tests/test_mesh_collision.py``).  On a mesh handle kinds 0-2 put
+  spheres inside and against the mesh bar, kind 1 on a post box as well.
 
 The fingers close onto the bar (each pad 1 mm into it along the finger
 separation axis, or fully open where the bar is longer than the grip).
@@ -155,7 +161,8 @@ def drawer_contact_states(env, num_envs: int, seed: int):
     pad_r = float(env.spheres.radius[env.spheres.sticky > 0].max())
     pad_q = half_ext + pad_r - 0.001 - PAD_OFFSET
     qpos[:, D - 2:] = np.clip(pad_q, 0.0, FINGER_OPEN)[:, None]
-    kind = np.arange(E) % 4
+    has_grids = env.scene.obj_grids is not None
+    kind = np.arange(E) % (5 if has_grids else 4)
     goal = mid.copy()
     goal[kind == 2] -= 1.5 * ol[kind == 2, None] * out[kind == 2]
     goal += rs.uniform(-0.002, 0.002, (E, 3))
@@ -174,6 +181,11 @@ def drawer_contact_states(env, num_envs: int, seed: int):
     pad0 = centers[:, int(np.argmax(pads))].cpu().numpy()
     shift = junction - pad0 + rs.uniform(-0.001, 0.001, (E, 3))
     root_pos[kind == 1] += shift[kind == 1].astype(np.float32)
+    # kind 4: the first finger pad 0.2 of its radius beyond the bar's back
+    # face, mid-bar
+    hook = mid - (0.5 * ol + 0.2 * pad_r)[:, None] * out
+    shift = hook - pad0 + rs.uniform(-0.001, 0.001, (E, 3))
+    root_pos[kind == 4] += shift[kind == 4].astype(np.float32)
     # kind 3: the lowest finger pad 2 mm into the ground
     bottom = (centers[..., 2] - env.spheres.radius[None]).cpu().numpy()
     pad_bottom = bottom[:, pads].min(1)
@@ -218,12 +230,48 @@ def sphere_box_depths(env, state):
     return torch.where(active, depth, torch.full_like(depth, math.inf))
 
 
+def _grid_queries(env, state):
+    """(depth, active, inside), each [E, S, K], of every (env, sphere,
+    mesh-SDF geom) pair of a ``SceneState`` as the engine computes them:
+    ``active`` = unmasked geom with a gradient norm > 1e-6, ``inside`` =
+    unmasked geom and a query inside its grid's interior cells (where the
+    trilinear lookup loads its 8 cells)."""
+    from ..ops import rotations as rot
+    from ..ops import sdf as sdf_ops
+    scene = env.scene
+    gg = scene.obj_grids
+    E = state.robot.qpos.shape[0]
+    K = gg.link_idx.shape[-1]
+    fk = kinematics.forward_kinematics(scene.robot, state.robot)
+    centers = contact.sphere_positions(scene.robot, fk, env.spheres, E)
+    S = centers.shape[1]
+    fk_o = kinematics.forward_kinematics(scene.obj_tree, state.obj)
+    glink = gg.link_idx.expand(E, K)
+    gp, gq = rot.transform_compose(
+        kinematics._take_env(fk_o.link_pos, glink),
+        kinematics._take_env(fk_o.link_quat, glink),
+        gg.offset_pos.expand(E, K, 3), gg.offset_quat.expand(E, K, 4))
+    p_loc = rot.quat_rotate_inverse(gq[:, None].expand(E, S, K, 4),
+                                    centers[:, :, None] - gp[:, None])
+    val, grad = sdf_ops.grid_query_grad(
+        scene.grid_stack, gg.grid_id.expand(E, K)[:, None].expand(E, S, K),
+        p_loc, outside_value=1.0)
+    depth = val - env.spheres.radius[None, :, None]
+    live = gg.geom_mask.expand(E, K)[:, None] > 0
+    # grids hold values within ±trunc < 1, so 1.0 marks a query outside
+    return (depth, live & (torch.linalg.norm(grad, dim=-1) > 1e-6),
+            live & (val != 1.0))
+
+
 def touching_counts(env, state) -> dict:
     """How many (env, sphere) pairs touch each partner in a ``SceneState`` of
     the port, and how many anchors are attached to each: the evidence that a
     check on these states exercises the contact branches.  For a scene with
     an articulated object: spheres touching a box, spheres touching two or
-    more boxes at once, touching (sphere, box) pairs."""
+    more boxes at once, touching (sphere, box) pairs; with mesh-SDF geoms
+    also spheres touching a grid geom, touching (sphere, grid) pairs, the
+    queries that land inside their grid (what the kernel's lookups load) and
+    the anchors on grid geoms (partner ids from 2 + G on)."""
     from ..ops import rotations as rot
     E = state.robot.qpos.shape[0]
     fk = kinematics.forward_kinematics(env.scene.robot, state.robot)
@@ -235,10 +283,19 @@ def touching_counts(env, state) -> dict:
     if env.scene.obj_tree is not None:
         touch = sphere_box_depths(env, state) < 0
         per_sphere = touch.sum(-1)
+        koff = 2 + env.scene.obj_boxes.link_idx.shape[-1]
+        body = state.anchors.body
         counts.update(boxes=int((per_sphere > 0).sum()),
                       two_boxes=int((per_sphere > 1).sum()),
                       box_pairs=int(touch.sum()),
-                      anchors_on_boxes=int((state.anchors.body >= 2).sum()))
+                      anchors_on_boxes=int(((body >= 2) & (body < koff)).sum()))
+        if env.scene.obj_grids is not None:
+            depth, active, inside = _grid_queries(env, state)
+            touch_g = active & (depth < 0)
+            counts.update(grids=int((touch_g.sum(-1) > 0).sum()),
+                          grid_pairs=int(touch_g.sum()),
+                          grid_queries_inside=int(inside.sum()),
+                          anchors_on_grids=int((body >= koff).sum()))
         return counts
     p_local = rot.quat_rotate_inverse(
         state.body.quat[:, None], centers - state.body.pos[:, None])

@@ -8,6 +8,9 @@ without importing JAX):
   a ``state_dict`` for :class:`models.actor_critic.ActorCritic`, for either
   network kind (``MLP``; ``PointNet``, whose flax layers ``Dense_0..Dense_5``
   are the three per-point layers, the two after the pool and the head);
+* :func:`adam_state_from_jax` — the Adam state of a JAX optimizer (actor
+  part or critic) → the port's ``{"count", "mu", "nu"}`` keyed by parameter
+  name;
 * :func:`rms_from_jax` — ``{"n", "mean", "S"}`` → ``RMSState``;
 * :func:`scene_state_from_numpy` / :func:`env_state_from_numpy` (and their
   ``*_to_numpy`` inverses) — states given as ``[E, ...]`` numpy arrays (the
@@ -61,6 +64,27 @@ def actor_critic_from_jax(np_tree: dict, network: str = "MLP") -> Dict[str, torc
     sd.update(_dense_from_flax(np_tree["actor"], "actor", network))
     sd.update(_dense_from_flax(np_tree["critic"], "critic", network))
     return sd
+
+
+def adam_state_from_jax(opt_state, part: str, network: str = "MLP") -> dict:
+    """The Adam moments and step count of a JAX optimizer state (read by
+    ``checkpoint.load_jax``) as the port's optimizer state: ``{"count": int,
+    "mu": {name: tensor}, "nu": {...}}`` with the names of
+    ``ActorCritic.named_parameters()``.  ``part`` is ``"actor"`` (the actor
+    network and ``log_std``, one optimizer in both packages) or
+    ``"critic"``."""
+    from . import checkpoint
+    adam = checkpoint.jax_adam_state(opt_state)
+
+    def moments(tree):
+        if part == "actor":
+            out = _dense_from_flax(tree["actor"], "actor", network)
+            out["log_std"] = torch.from_numpy(np.array(tree["log_std"], np.float32))
+            return out
+        if part == "critic":
+            return _dense_from_flax(tree, "critic", network)
+        raise ValueError(f"part must be 'actor' or 'critic', got {part!r}")
+    return {"count": int(adam.count), "mu": moments(adam.mu), "nu": moments(adam.nu)}
 
 
 def rms_from_jax(d: dict, device="cpu") -> RMSState:

@@ -2,7 +2,8 @@
 open_drawer expert (``artifacts/open_drawer_ppo/expert_r3c_seed389/
 model_30000.ckpt``) read by ``utils/checkpoint.load_jax`` and carried into
 the port's ``ActorCritic`` gives the JAX ``ActorCritic``'s ``mu``, value and
-log-prob on fixed observations (f32: 1e-5 absolute, 1e-6 relative for the
+log-prob on fixed observations, and its two Adam states (step count,
+moments) are read leaf for leaf (f32: 1e-5 absolute, 1e-6 relative for the
 O(100) values and log-probs); the reader imports nothing of
 JAX, refuses foreign classes, and ``train_torch.main --resume`` evaluates the
 checkpoint in the port's open_drawer env on the CPU."""
@@ -46,7 +47,14 @@ def test_reader_keeps_every_leaf(both):
     jd, td, _, _ = both
     assert td["iteration"] == jd["iteration"] == 30000
     assert td["tricks"] == jd["tricks"] and td["obs_mode"] == "normal_state"
-    assert td["opt_actor"] is None and td["opt_critic"] is None
+    for part in ("opt_actor", "opt_critic"):
+        ja = [x for x in jax.tree.leaves(jd[part], is_leaf=lambda x: hasattr(x, "nu"))
+              if hasattr(x, "nu")]
+        ta = tckpt.jax_adam_state(td[part])
+        assert len(ja) == 1 and int(ta.count) == int(ja[0].count) > 0
+        for a, b in zip(jax.tree.leaves((ja[0].mu, ja[0].nu)),
+                        jax.tree.leaves((ta.mu, ta.nu))):
+            np.testing.assert_array_equal(np.asarray(a), b)
     jl = jax.tree.leaves((jd["params"], jd["rms"]))
     tl = jax.tree.leaves((tuple(td["params"]), tuple(td["rms"])))
     assert len(jl) == len(tl)

@@ -1,8 +1,9 @@
 """The port's command line end to end on the CPU:
 ``train_torch.main([... "--test_only", "--device", "cpu"])`` gives finite
 ``Test/*`` metrics under the names the JAX package logs, resumes a checkpoint
-of the port's own format, and refuses what is not ported by naming the
-ROADMAP item that will bring it.  (No JAX needed; the names of the env's
+of the port's own format, trains PPO (two iterations, a checkpoint with both
+Adam states, resumed for a third), and refuses what is not ported by naming
+the ROADMAP item that will bring it.  (No JAX needed; the names of the env's
 extras are compared with the JAX env in ``test_torch_slice.py``.)"""
 
 import os
@@ -14,6 +15,7 @@ import torch
 from partmanip_tpu_torch.models.actor_critic import ActorCritic as TActorCritic
 from partmanip_tpu_torch.utils import checkpoint as ckpt_lib
 
+import _torch_vision as tv
 import train_torch
 
 # extras of partmanip_tpu/envs/grasp_cube.py:_reward, + what _eval_round adds
@@ -75,9 +77,6 @@ TEACHER = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 
 
 @pytest.mark.parametrize("extra,roadmap_item", [
-    ((), "PPO train iteration"),
-    (("--test_only", "--taskcfg", "open_drawer", "--task.asset.mesh_handle"),
-     "mesh collision"),
     (("--taskcfg", "open_drawer", "--algocfg", "dagger", "--algo.obs_mode", "depth_pc",
       "--algo.model.network.name", "PointNet", "--algo.teacher", TEACHER,
       "--task.asset.assetRoot", "{tmp}"), "BC / DAgger training"),
@@ -86,9 +85,43 @@ TEACHER = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
     (("--test_only", "--save_video"), "renderer"),
     (("--test_only", "--parallel.num_devices", "2"), "multi-GPU"),
     (("--test_only", "--sim.coriolis"), "coriolis"),
-], ids=["train", "open_drawer", "dagger", "vision_obs", "save_pose",
+], ids=["dagger", "vision_obs", "save_pose",
         "save_video", "multi_gpu", "coriolis"])
 def test_unported_parts_raise_naming_the_roadmap(tmp_path, extra, roadmap_item):
     args = _main_args(tmp_path) + [a.format(tmp=tmp_path) for a in extra]
     with pytest.raises(NotImplementedError, match=roadmap_item):
         train_torch.main(args)
+
+
+@pytest.fixture
+def one_thread():
+    with tv.one_torch_thread():
+        yield
+
+
+def test_cli_trains_and_resumes(tmp_path, one_thread):
+    """PPO without ``--test_only``: two iterations on the CPU give finite
+    ``Train/*`` metrics (every minibatch update applied, as the JAX
+    package's smoke run expects at init), save ``model_2.ckpt`` with both
+    Adam states, and a run resumed from it continues at iteration 3 from
+    those states."""
+    args = _main_args(tmp_path, "--algo.n_steps", "2", "--algo.max_iterations", "2",
+                      "--algo.eval_frequence", "2", "--algo.save_frequence", "2")
+    runner = train_torch.main(args)
+    log = runner.last_log
+    assert runner.curr_iter == 2 and runner.total_envsteps == 2 * 2 * 4
+    assert all(np.isfinite(v) for v in log.values()), log
+    assert log["Train/kl_update_count"] == 5 * 8
+    for k in ("Train/value_function_loss", "Train/surrogate_loss", "Train/kl",
+              "Train/raw_reward_mean", "Train/value_pred_mean"):
+        assert k in log, k
+    ckpt = ckpt_lib.load(os.path.join(runner.save_ckpt_dir, "model_2.ckpt"))
+    assert ckpt["opt_actor"]["count"] == ckpt["opt_critic"]["count"] == 2 * 5 * 8
+    assert set(ckpt["opt_actor"]["mu"]) == {n for n in ckpt["ac"] if not n.startswith("critic")}
+    # the later --algo.max_iterations wins
+    resumed = train_torch.main(args + [
+        "--algo.max_iterations", "3", "--resume",
+        os.path.join(runner.save_ckpt_dir, "model_2.ckpt")])
+    assert resumed.curr_iter == 3 and resumed.last_log["Progress/total_steps"] == 3
+    assert resumed.last_log["Train/kl_update_count"] == 5 * 8
+    assert all(torch.isfinite(p).all() for p in resumed.ac.parameters())

@@ -51,7 +51,8 @@ def test_every_subpackage_has_its_counterpart_layout():
     for sub in ("ops", "sim", "envs", "models", "algos", "utils"):
         assert f"partmanip_tpu_torch.{sub}" in mods
     for name in ("ops.raymarch", "ops.raymarch_cuda", "ops.fps", "ops.tsdf",
-                 "envs.vision", "utils.camera", "utils.cuda_lib", "algos.dagger"):
+                 "envs.vision", "utils.camera", "utils.cuda_lib", "algos.dagger",
+                 "ops.sdf", "algos.storage"):
         assert f"partmanip_tpu_torch.{name}" in mods, name
     for name in mods:
         if name.endswith((".contact_states", ".convert", ".cuda_lib")):
@@ -74,14 +75,15 @@ print("LIBS", len(cuda_lib._LIBS))
 
 
 def test_every_kernel_registers_its_count_and_builds_nothing_at_import():
-    """B1a, B1b, B2 and B3 count their launches through the shared helper;
-    importing the port (without nvcc on the PATH) loads no kernel."""
+    """B1a, B1b, B1c, B2 and B3 count their launches through the shared
+    helper; importing the port (without nvcc on the PATH) loads no kernel."""
     env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME="/nonexistent")
     out = subprocess.run([sys.executable, "-c", KERNEL_REGISTRY], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     lines = dict(ln.split(" ", 1) for ln in out.stdout.strip().splitlines())
-    assert lines["COUNTS"] == str([("b1a", 0), ("b1b", 0), ("b2", 0), ("b3", 0)])
+    assert lines["COUNTS"] == str([("b1a", 0), ("b1b", 0), ("b1c", 0), ("b2", 0),
+                                   ("b3", 0)])
     assert lines["LIBS"] == "0"
 
 

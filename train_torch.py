@@ -5,6 +5,8 @@ Usage:
     python train_torch.py --taskcfg open_drawer --algocfg ppo --test_only \
         --algo.tricks.use_state_norm \
         --resume artifacts/open_drawer_ppo/expert_r3c_seed389/model_30000.ckpt
+    python train_torch.py --taskcfg open_drawer --algocfg ppo \
+        --task.asset.mesh_handle                      # PPO training
     python train_torch.py --taskcfg open_drawer --algocfg dagger --test_only \
         --algo.obs_mode depth_pc --algo.model.network.name PointNet \
         --algo.teacher artifacts/open_drawer_ppo/expert_r3c_seed389/model_30000.ckpt
