@@ -600,9 +600,7 @@ VISION_FLAGS = ["--taskcfg", "open_drawer", "--algocfg", "dagger", "--algo.obs_m
                 "--algo.teacher", DRAWER_CKPT]
 VISION_ENVS = 16              # cfg/algos/dagger.yaml num_envs
 K_POINTS = 1024
-# kernel B2 vs its plain version: share of pixels within PIXEL_TOL, worst error
-# where both hit (silhouette rays may flip between hit and miss)
-PIXEL_TOL, PIXEL_SHARE, HIT_TOL = 1e-3, 0.999, 1e-2
+FAR, EPS = 100.0, 1e-3        # the renderer's defaults (ops/raymarch.render_depth)
 SURFACE_TOL = 1e-2            # 10 eps: the renderer's hit test
 VISION_KERNELS = {
     "b2": dict(name="raymarch_b2", source="partmanip_tpu_torch/csrc/raymarch.cu",
@@ -639,23 +637,91 @@ def vision_cases():
             "reset": vision.scene_prims(env, state.sim)}
 
 
-def _depth_errors(got, want, far=100.0):
+def _depth_errors(got, want):
     err = (got - want).abs()
-    both = (got < far) & (want < far)
-    return {"within_tol": float((err <= PIXEL_TOL).float().mean()),
+    both = (got < FAR) & (want < FAR)
+    return {"bit_equal": float((got == want).float().mean()),
+            "max_abs_err": float(err.max()),
             "worst_both_hit": float(err[both].max()) if bool(both.any()) else 0.0,
-            "bit_equal": float((got == want).float().mean()),
-            "hit_share": float((want < far).float().mean()),
-            "hit_flips": int(((got < far) != (want < far)).sum()),
+            "hit_share": float((want < FAR).float().mean()),
+            "hit_flips": int(((got < FAR) != (want < FAR)).sum()),
             "finite": bool(torch.isfinite(got).all())}
+
+
+def render_passes(rig, c2f):
+    """(name, ray table) of each pass of one render: the coarse pass and the
+    refine, or the exact march."""
+    from partmanip_tpu_torch.ops import raymarch_cuda
+    full = ("full", raymarch_cuda.ray_table(rig.poses, rig.intrinsic, rig.im_h, rig.im_w,
+                                            "cuda"))
+    if not c2f:
+        return [full]
+    coarse = raymarch_cuda.ray_table(rig.poses, raymarch_cuda.coarse_intrinsic(rig.intrinsic),
+                                     rig.im_h // 4, rig.im_w // 4, "cuda")
+    return [("coarse", coarse), full]
+
+
+def kept_shares(rig, prims, c2f):
+    """Per pass, the share of (tile, primitive) pairs that culling keeps,
+    of all pairs and of the live ones."""
+    from partmanip_tpu_torch.ops import raymarch
+    out = {}
+    for name, rays in render_passes(rig, c2f):
+        kept = raymarch.tile_masks(prims, rays, FAR)
+        live = raymarch.tile_masks(prims, rays, FAR, cull=False)
+        out[name] = {"tiles": rays.cos_t.shape[1], "of_all": float(kept.float().mean()),
+                     "of_live": float(kept.sum() / live.sum())}
+    return out
+
+
+def fps_cases(render_clouds):
+    """(points, k) of every case B3 is held on: the render clouds, a random
+    cloud and one with a 60 % zero cluster at the main path's shape, and
+    small and odd ones (N = 1, 7, 1000 and 442,369, which is not a multiple
+    of the cluster; an all-zero row; -0.0 zeros; index 0 not zero; a 0.1 m
+    grid with exact ties; k above the number of distinct points)."""
+    rs = np.random.RandomState(4)
+    B, N, _ = render_clouds["reset_c2f"].shape
+
+    def cuda(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device="cuda")
+
+    def zeroed(a, share, signed=False):
+        zero = rs.rand(*a.shape[:2]) < share
+        z = np.where(rs.rand(*a.shape) < 0.5, -0.0, 0.0) if signed else np.zeros_like(a)
+        return np.where(zero[..., None], z, a), zero
+
+    cases = {tag: (pts, K_POINTS) for tag, pts in render_clouds.items()}
+    rand = rs.randn(B, N, 3)
+    cases["random"] = (cuda(rand), K_POINTS)
+    cases["random_zero_cluster"] = (cuda(zeroed(rand, 0.6)[0]), K_POINTS)
+    cases["n1"] = (cuda(rs.randn(2, 1, 3)), 16)
+    cases["n7"] = (cuda(rs.randn(2, 7, 3)), 16)
+    cases["n1000_k_above_distinct"] = (cuda(zeroed(rs.randn(3, 1000, 3), 0.3)[0]), K_POINTS)
+    cases["n442369_zero87"] = (cuda(zeroed(rs.randn(2, 442_369, 3), 0.87)[0]), K_POINTS)
+    cases["all_zero"] = (cuda(np.zeros((2, 5000, 3))), 64)
+    neg, _ = zeroed(rs.randn(2, 50_000, 3), 0.85, signed=True)
+    neg[:, 0] = -0.0
+    cases["negative_zeros"] = (cuda(neg), K_POINTS)
+    first, _ = zeroed(rs.randn(2, 50_000, 3), 0.87)
+    first[:, 0] = rs.randn(2, 3)
+    first[:, 1] = 0.0
+    cases["index0_not_zero"] = (cuda(first), K_POINTS)
+    g = np.stack(np.meshgrid(*[np.arange(20.0)] * 3, indexing="ij"), -1).reshape(-1, 3) * 0.1
+    cases["grid_ties"] = (cuda(np.stack([g, g[rs.permutation(len(g))]])), K_POINTS)
+    few = zeroed(rs.randn(300, 3)[rs.randint(0, 300, (2, 20_000))], 0.5)[0]
+    cases["few_distinct"] = (cuda(few), K_POINTS)
+    return cases
 
 
 @torch.no_grad()
 def vision_kernel_check(rig, cases):
-    """B2 against its plain version (exact and coarse-to-fine) on each case
-    at full width; B3 against its plain version on the clouds of those
-    renders and on random clouds with and without a zero cluster.  Returns
-    (B2's worst error where both hit, B3's worst sampled-point error)."""
+    """B2 against its plain version (exact and coarse-to-fine, culled) on
+    each case at full width, bit for bit, with the share of (tile,
+    primitive) pairs each pass keeps; B3 against its plain version on the
+    clouds of those renders and on the cases of :func:`fps_cases`, index for
+    index, its compacted lengths against ``fps.compaction_plain``.  Returns
+    (B2's and B3's worst error)."""
     from partmanip_tpu_torch.ops import fps, raymarch, raymarch_cuda, tsdf
     renders, clouds, failures = {}, {}, []
     for name, prims in cases.items():
@@ -665,40 +731,44 @@ def vision_kernel_check(rig, cases):
             got = raymarch_cuda.render_with(raymarch_cuda.march, *args, coarse_to_fine=c2f)
             want = raymarch_cuda.render_with(raymarch.march_plain, *args, coarse_to_fine=c2f)
             torch.cuda.synchronize()
-            e = renders[tag] = _depth_errors(got, want)
-            if not (e["within_tol"] >= PIXEL_SHARE and e["worst_both_hit"] <= HIT_TOL
-                    and e["finite"]):
+            e = renders[tag] = {**_depth_errors(got, want),
+                                "kept": kept_shares(rig, prims, c2f)}
+            if not (e["bit_equal"] == 1.0 and e["finite"]):
                 failures.append(f"B2 {tag}: {e}")
             clouds[tag] = tsdf.workspace_points(rig.tsdf_spec, got)
-    B, N, _ = clouds["reset_c2f"].shape
-    rs = np.random.RandomState(4)
-    rand = torch.as_tensor(rs.randn(B, N, 3).astype(np.float32), device="cuda")
-    clouds["random"] = rand
-    zero = torch.as_tensor(rs.rand(B, N) < 0.6, device="cuda")
-    clouds["random_zero_cluster"] = torch.where(zero[..., None], 0.0, rand)
     sampled, b3_worst = {}, 0.0
-    for tag, pts in clouds.items():
-        got = fps.farthest_point_sampling_cuda(pts, K_POINTS).long()
-        _, want = fps.farthest_point_sampling_plain(pts, K_POINTS)
-        torch.cuda.synchronize()
-        rows = pts.gather(1, got[..., None].expand(-1, -1, 3))
-        ref = pts.gather(1, want[..., None].expand(-1, -1, 3))
-        err = float((rows - ref).abs().max())
-        b3_worst = max(b3_worst, err)
-        sampled[tag] = {"index_match": float((got == want).float().mean()),
-                        "rows_equal": int((got == want).all(dim=1).sum()), "rows": B,
-                        "zero_points": float((pts.abs().sum(-1) == 0).float().mean()),
-                        "max_abs_err": err}
-        if not torch.equal(got, want):
-            failures.append(f"B3 {tag}: {sampled[tag]}")
+    for tag, (pts, k) in fps_cases(clouds).items():
+        _, want = fps.farthest_point_sampling_plain(pts, k)
+        kept = fps.compaction_plain(pts).sum(1)
+        # the cluster size the wrapper picks; some cases also on 1 and 8 CTAs
+        sizes = [None] + ([1, 8] if tag in ("reset_c2f", "grid_ties", "n442369_zero87")
+                          else [])
+        for cluster in sizes:
+            got, counts = fps.launch(pts, k, cluster)
+            got = got.long()
+            torch.cuda.synchronize()
+            rows = pts.gather(1, got[..., None].expand(-1, -1, 3))
+            ref = pts.gather(1, want[..., None].expand(-1, -1, 3))
+            err = float((rows - ref).abs().max())
+            b3_worst = max(b3_worst, err)
+            name = tag if cluster is None else f"{tag}_cluster{cluster}"
+            sampled[name] = {
+                "rows": pts.shape[0], "points": pts.shape[1], "k": k,
+                "cluster": cluster or fps.cluster_for(*pts.shape[:2], pts.device),
+                "index_match": float((got == want).float().mean()),
+                "rows_equal": int((got == want).all(dim=1).sum()),
+                "zero_points": float((pts == 0).all(-1).float().mean()),
+                "compacted": counts.tolist(), "compacted_equal": torch.equal(counts.long(), kept),
+                "max_abs_err": err}
+            if not (torch.equal(got, want) and sampled[name]["compacted_equal"]):
+                failures.append(f"B3 {name}: {sampled[name]}")
+    B, N, _ = clouds["reset_c2f"].shape
     emit("kernel_check", variant="b2+b3", num_envs=B, image=[rig.num_view, rig.im_h, rig.im_w],
-         points=N, k=K_POINTS,
-         tolerances={"pixel": PIXEL_TOL, "pixel_share": PIXEL_SHARE, "both_hit": HIT_TOL,
-                     "fps": "index-exact"},
+         points=N, k=K_POINTS, tolerances={"render": "bit-equal", "fps": "index-exact"},
          renders=renders, fps=sampled, failures=failures)
     if failures:
         raise RuntimeError("kernel_check (b2, b3) failed: " + "; ".join(failures))
-    return max(r["worst_both_hit"] for r in renders.values()), b3_worst
+    return max(r["max_abs_err"] for r in renders.values()), b3_worst
 
 
 @torch.no_grad()
@@ -817,6 +887,26 @@ def vision_main_path():
     return launches
 
 
+def _device_ms(fn, names, reps=5):
+    """Device time per call of ``fn`` of the kernels whose name holds one of
+    ``names``, and of all device work, from ``torch.profiler`` (ms; None
+    where the profiler records no device time)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def total(evs):
+        us = sum(getattr(e, "device_time_total", 0) or 0 for e in evs)
+        return us / 1e3 / reps if us > 0 else None
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    return total([e for e in kernels if any(n in e.key for n in names)]), total(kernels)
+
+
 def _host_ms(fn, reps=10):
     """Median host-clock time of ``fn`` ending in a synchronise (ms)."""
     times = []
@@ -830,43 +920,69 @@ def _host_ms(fn, reps=10):
 
 
 @torch.no_grad()
-def b2_operations(rig, prims, c2f):
+def b2_operations(rig, prims, c2f, cull=True):
     """f32 operations of one render, counted from csrc/raymarch.cu with the
-    scene evaluations this input needs (the plain march counts them; a
-    multiply-add counts 2): per evaluation the point (6), every sphere (11),
-    every live box (54: 53 arithmetic operations and the mask test), the
-    ground (1) and the march update (6); per ray its inverse length (6) and
-    the hit select (3)."""
+    scene evaluations and the primitives they keep that this input needs
+    (the plain march counts them; a multiply-add counts 2): per evaluation
+    the point (6), every kept sphere (11), every kept box (53), the ground
+    (1) and the march update (6); per ray its inverse length (6) and the hit
+    select (3).  ``cull=False`` counts the unculled march."""
     from partmanip_tpu_torch.ops import raymarch, raymarch_cuda
-    S = prims.sphere_radius.shape[1]
-    live = (prims.box_mask > 0).sum(1).double()                     # [E]
-    per_eval = 13 + 11 * S + 54 * live                              # [E]
 
-    def ops(dirs, org, t0, steps):
-        _, evals = raymarch.march_plain(prims, dirs, org, t0, steps, 100.0, 1e-3,
-                                        count_evals=True)
-        n = evals.double().sum(dim=(1, 2))                          # [E]
-        return float((n * per_eval).sum()) + 9.0 * evals.numel()
+    def ops(rays, t0, steps):
+        _, ev = raymarch.march_plain(prims, rays, t0, steps, FAR, EPS, cull=cull,
+                                     count_evals=True)
+        ev = ev.double()
+        return (float((13 * ev[..., 0] + 11 * ev[..., 1] + 53 * ev[..., 2]).sum())
+                + 9.0 * ev[..., 0].numel())
 
-    E = prims.sphere_radius.shape[0]
+    passes = dict(render_passes(rig, c2f))
     if not c2f:
-        dirs, org = raymarch_cuda.ray_table(rig.poses, rig.intrinsic, rig.im_h, rig.im_w, "cuda")
-        return ops(dirs, org, 0.05, 40)
+        return ops(passes["full"], 0.05, 40)
+    E, V = prims.sphere_radius.shape[0], rig.num_view
     hc, wc = rig.im_h // 4, rig.im_w // 4
-    intr_c = np.asarray(rig.intrinsic, np.float64).copy()
-    intr_c[:2] /= 4.0
-    dc, oc = raymarch_cuda.ray_table(rig.poses, intr_c.astype(np.float32), hc, wc, "cuda")
-    coarse = raymarch.march_plain(prims, dc, oc, 0.05, 40, 100.0, 1e-3)
-    t0 = raymarch_cuda.coarse_start(coarse.reshape(E, -1, hc, wc), 100.0).reshape(E, rig.num_view, -1)
-    dirs, org = raymarch_cuda.ray_table(rig.poses, rig.intrinsic, rig.im_h, rig.im_w, "cuda")
-    return ops(dc, oc, 0.05, 40) + ops(dirs, org, t0.contiguous(), raymarch_cuda.REFINE_STEPS)
+    coarse = raymarch.march_plain(prims, passes["coarse"], 0.05, 40, FAR, EPS, cull=cull)
+    t0 = raymarch_cuda.coarse_start(coarse.reshape(E, V, hc, wc), FAR).reshape(E, V, -1)
+    return (ops(passes["coarse"], 0.05, 40)
+            + ops(passes["full"], t0.contiguous(), raymarch_cuda.REFINE_STEPS))
+
+
+def _bound(ops, nbytes):
+    o, b = ops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return {"bound_ms": max(o, b), "bound_by": "operations" if o >= b else "bytes",
+            "bound_operations_ms": o, "bound_bytes_ms": b, "operations": ops,
+            "bytes": nbytes}
+
+
+def b3_placement_of(pts, cluster):
+    """Where one launch of kernel B3 on clusters of ``cluster`` CTAs ran, as
+    its CTAs wrote it (their SM and their start and end on the card's global
+    timer): the distinct SMs used, the waves (a CTA that starts after
+    another has ended is a wave later than it) and the most CTAs running at
+    once."""
+    from partmanip_tpu_torch.ops import fps
+    trace = torch.zeros((pts.shape[0] * cluster, 3), dtype=torch.int64, device=pts.device)
+    fps.launch(pts, K_POINTS, cluster, trace=trace)
+    sm, start, end = trace.cpu().T.tolist()
+    wave = {}
+    for i in sorted(range(len(start)), key=start.__getitem__):
+        wave[i] = 1 + max((wave[j] for j in wave if end[j] <= start[i]), default=0)
+    return {"sms_used": len(set(sm)), "waves": max(wave.values()),
+            "ctas_at_once": max(sum(s <= t < e for s, e in zip(start, end)) for t in start),
+            "start_spread_us": (max(start) - min(start)) / 1e3}
 
 
 @torch.no_grad()
 def vision_timing(rig, prims, repeats=20):
     """B2 per render (coarse to fine, as the main path runs it, and exact)
     and B3 per call at the main path's shapes, by CUDA events; the plain
-    versions; the bounds."""
+    versions; the device time of the kernels alone (``torch.profiler``;
+    B2's render also spends host time on its masks and the coarse-to-fine
+    filter); the bounds (B2's over the culled march, beside the unculled
+    count; B3's over the compacted rows, beside the full ones); B3's
+    cluster shape, occupancy (the runtime's query) and placement (read from
+    the CTAs, :func:`b3_placement_of`), and its time and placement on each
+    cluster size from 8 down to 4 CTAs."""
     from partmanip_tpu_torch.ops import fps, raymarch, raymarch_cuda, tsdf
     from partmanip_tpu_torch.utils import cuda_lib
     kernel = (raymarch_cuda.march, prims, rig.poses, rig.intrinsic, rig.im_h, rig.im_w)
@@ -880,14 +996,20 @@ def vision_timing(rig, prims, repeats=20):
     b2_exact_ms = _timed(lambda: render(*kernel), repeats)
     b2_plain_ms = _timed(lambda: render(*plain, coarse_to_fine=True), 3)
     b2_plain_exact_ms = _timed(lambda: render(*plain), 3)
+    masks_ms = _timed(lambda: [raymarch.tile_masks(prims, rays, FAR).to(torch.uint8)
+                               for _, rays in render_passes(rig, True)], repeats)
+    b2_device_ms, b2_all_device_ms = _device_ms(lambda: render(*kernel, coarse_to_fine=True),
+                                                ["march_kernel"])
     E, V, H, W = depth.shape
     S, G = prims.sphere_radius.shape[1], prims.box_pos.shape[1]
-    ops_c2f, ops_exact = b2_operations(rig, prims, True), b2_operations(rig, prims, False)
     n_c, n = E * V * (H // 4) * (W // 4), E * V * H * W
     prim_bytes = E * (4 * S + 11 * G) * 4
-    # coarse launch: prims, rays, image out; refine: prims, rays, t0 in, image out
-    bytes_c2f = 2 * prim_bytes + (3 * V * H * W // 16 + n_c) * 4 + (3 * V * H * W + 2 * n) * 4
-    bytes_exact = prim_bytes + (3 * V * H * W + n) * 4
+    mask_bytes = {name: E * rays.cos_t.numel() * (S + G)
+                  for name, rays in render_passes(rig, True)}
+    # coarse launch: prims, masks, rays, image out; refine: prims, masks, rays, t0 in, image out
+    bytes_c2f = (2 * prim_bytes + mask_bytes["coarse"] + mask_bytes["full"]
+                 + (3 * V * H * W // 16 + n_c) * 4 + (3 * V * H * W + 2 * n) * 4)
+    bytes_exact = prim_bytes + mask_bytes["full"] + (3 * V * H * W + n) * 4
 
     pts = tsdf.workspace_points(rig.tsdf_spec, depth)
     for _ in range(2):
@@ -896,25 +1018,41 @@ def vision_timing(rig, prims, repeats=20):
     b3_ms = _timed(lambda: fps.farthest_point_sampling_cuda(pts, K_POINTS), repeats)
     b3_launches = cuda_lib.launch_counts()["b3"] / repeats
     b3_plain_ms = _timed(lambda: fps.farthest_point_sampling_plain(pts, K_POINTS), 3)
+    _, counts = fps.launch(pts, K_POINTS)
     B, N, _ = pts.shape
-    ops_b3 = 8.0 * K_POINTS * N * B
+    resident = {c: fps.max_active_clusters(N, c) for c in range(1, fps.MAX_CLUSTER + 1)}
+    cluster = fps.cluster_for(B, N, pts.device)
+    cfg = fps.launch_config(B, N, cluster)
+    b3_ms_by_cluster = {c: _timed(lambda: fps.launch(pts, K_POINTS, c), 10)
+                        for c in range(fps.MAX_CLUSTER, 3, -1)}
+    b3_placement = {c: b3_placement_of(pts, c) for c in b3_ms_by_cluster}
+    b3_device_ms, _ = _device_ms(lambda: fps.farthest_point_sampling_cuda(pts, K_POINTS),
+                                 ["fps_kernel"])
+    compacted = counts.tolist()
     bytes_b3 = B * N * 12 + B * K_POINTS * 4
-
-    def bound(ops, nbytes):
-        o, b = ops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-        return {"bound_ms": max(o, b), "bound_by": "operations" if o >= b else "bytes",
-                "bound_operations_ms": o, "bound_bytes_ms": b, "operations": ops,
-                "bytes": nbytes}
 
     b2 = {"ms": b2_ms, "exact_ms": b2_exact_ms, "plain_ms": b2_plain_ms,
           "plain_exact_ms": b2_plain_exact_ms, "library_ms": None,
-          "launches_per_render": b2_launches, **bound(ops_c2f, bytes_c2f),
-          "exact": bound(ops_exact, bytes_exact), "rays": n, "spheres": S, "boxes": G,
-          "live_boxes_mean": float((prims.box_mask > 0).sum(1).float().mean())}
+          "masks_ms": masks_ms, "kernel_device_ms": b2_device_ms,
+          "all_device_ms": b2_all_device_ms, "launches_per_render": b2_launches,
+          **_bound(b2_operations(rig, prims, True), bytes_c2f),
+          "exact": _bound(b2_operations(rig, prims, False), bytes_exact),
+          "unculled": {"c2f": _bound(b2_operations(rig, prims, True, cull=False), bytes_c2f),
+                       "exact": _bound(b2_operations(rig, prims, False, cull=False),
+                                       bytes_exact)},
+          "kept": kept_shares(rig, prims, True), "rays": n, "spheres": S, "boxes": G,
+          "live_boxes_mean": float((prims.box_mask > 0).sum(1).float().mean()),
+          "threads_per_block": raymarch_cuda.BLK ** 2}
     b3 = {"ms": b3_ms, "plain_ms": b3_plain_ms, "library_ms": None, "batch": B,
-          "points": N, "k": K_POINTS, "zero_points": float((pts.abs().sum(-1) == 0).float().mean()),
-          "launches_per_call": b3_launches, "grid_blocks": B,
-          **bound(ops_b3, bytes_b3)}
+          "points": N, "k": K_POINTS,
+          "zero_points": float((pts == 0).all(-1).float().mean()),
+          "compacted_points": compacted, "launches_per_call": b3_launches,
+          "cluster": cluster, "ctas": cfg["ctas"], "threads_per_cta": cfg["threads"],
+          "smem_bytes_per_cta": cfg["smem_bytes"], "points_on_chip_per_cta": cfg["points_on_chip"],
+          "max_active_clusters": resident, **b3_placement[cluster],
+          "ms_by_cluster": b3_ms_by_cluster, "placement_by_cluster": b3_placement, "kernel_device_ms": b3_device_ms,
+          **_bound(8.0 * K_POINTS * sum(compacted), bytes_b3),
+          "full_rows": _bound(8.0 * K_POINTS * N * B, bytes_b3)}
     emit("timing", variant="b2", **b2)
     emit("timing", variant="b3", **b3)
     return b2, b3

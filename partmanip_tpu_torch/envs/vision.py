@@ -53,6 +53,9 @@ class VisionRig:
             size=tsdf_cfg["size"], resolution=tsdf_cfg["resolution"],
             origin=tsdf_cfg["origin"])
         self.coarse_to_fine = bool(cam_cfg.get("coarse_to_fine", True))
+        # per-tile cone culling, as the JAX package's TPU kernel renders (no
+        # YAML key: the JAX package has none; its CPU renderer does not cull)
+        self.cull = True
 
 
 def scene_prims(env, sim: engine.SceneState) -> raymarch.ScenePrims:
@@ -80,10 +83,11 @@ def scene_prims(env, sim: engine.SceneState) -> raymarch.ScenePrims:
 
 
 def render_depth(rig: VisionRig, prims: raymarch.ScenePrims) -> torch.Tensor:
-    """The rig's depth images [E, V, H, W] (coarse-to-fine as the rig
-    says)."""
+    """The rig's depth images [E, V, H, W] (coarse-to-fine and culled as
+    the rig says)."""
     return raymarch.render_depth(prims, rig.poses, rig.intrinsic, rig.im_h,
-                                 rig.im_w, coarse_to_fine=rig.coarse_to_fine)
+                                 rig.im_w, coarse_to_fine=rig.coarse_to_fine,
+                                 cull=rig.cull)
 
 
 def render_obs(env, rig: VisionRig, sim: engine.SceneState) -> Dict:

@@ -8,13 +8,24 @@ misses.  Rays have z-normalized camera-frame directions, so the march
 parameter is the z-depth; each step advances by the SDF along the unit ray.
 
 * :func:`scene_sdf` — min-SDF of the scene at world points;
-* :func:`march_plain` — the plain exact march of given rays from given start
+* :func:`prim_masks` — per-tile cone culling: which primitives each 32×32
+  pixel tile of a view can see (``raymarch_tpu._prim_masks``, in f32);
+* :func:`march_plain` — the plain march of given rays from given start
   depths (what kernel B2 computes, op for op: no fused multiply-adds, the
-  box distance in the kernel's component form, the same done / hit tests);
+  box distance in the kernel's component form, the same done / hit tests).
+  With ``cull`` (the default) a ray's scene distance is the minimum over
+  the primitives kept for its tile and the ground, as in the TPU kernel;
+  without, over every live primitive, as in the JAX package's XLA path;
 * :func:`render_depth` — the entry point.  Prims on a CUDA device go to
   kernel B2 (``ops/raymarch_cuda.py``), prims on the CPU to
-  :func:`march_plain`; both through the same ray table and the same
-  coarse-to-fine routine.
+  :func:`march_plain`; both through the same ray table, the same masks and
+  the same coarse-to-fine routine.
+
+Culling changes the result, not only the work: a primitive that a ray never
+hits still shortens its sphere-tracing steps, so a culled march stops at
+other depths than an unculled one (up to 0.22 m where both hit on a 96×128
+render; ROADMAP Queue C).  The JAX package renders with culling on a
+TPU and without it on the CPU.
 
 ``render_rgb``, ``scene_sdf_seg``, ``scene_normal`` and ``render_depth_seg``
 are not ported yet: the observation modes that need them raise (ROADMAP
@@ -45,6 +56,18 @@ class ScenePrims(NamedTuple):
     box_half: torch.Tensor        # [E, G, 3]
     box_mask: torch.Tensor        # [E, G]
     ground: bool = True
+
+
+class RayTable(NamedTuple):
+    """The rays of one rig at one image size (``raymarch_cuda.ray_table``)."""
+
+    dirs: torch.Tensor            # f32 [V, 3, H·W] world directions, row-major pixels
+    origins: torch.Tensor         # f32 [V, 3]
+    axes: torch.Tensor            # f32 [V, T, 3] unit axis of each tile's ray cone
+    cos_t: torch.Tensor           # f32 [V, T] cos of the cone's half-angle
+    tile_of: torch.Tensor         # i64 [H·W] the 32×32 tile of each pixel
+    im_h: int
+    im_w: int
 
 
 def _sphere_dist(prims: ScenePrims, px, py, pz):
@@ -85,12 +108,21 @@ def _box_dist(prims: ScenePrims, px, py, pz):
     return torch.where(prims.box_mask[:, None] > 0, d, torch.full_like(d, 1e6))
 
 
-def _scene_dist(prims: ScenePrims, px, py, pz):
+def _scene_dist(prims: ScenePrims, px, py, pz, keep=None):
+    """[E, N] points → [E, N] scene distance; ``keep`` [E, N, S+G] bool
+    drops the primitives it is False for (the ground is never dropped)."""
     d = torch.full_like(px, 1e6)
-    if prims.sphere_center is not None and prims.sphere_center.shape[1]:
-        d = torch.minimum(d, _sphere_dist(prims, px, py, pz).amin(-1))
+    S = prims.sphere_radius.shape[1]
+    if prims.sphere_center is not None and S:
+        ds = _sphere_dist(prims, px, py, pz)
+        if keep is not None:
+            ds = torch.where(keep[..., :S], ds, torch.full_like(ds, 1e6))
+        d = torch.minimum(d, ds.amin(-1))
     if prims.box_pos is not None and prims.box_pos.shape[1]:
-        d = torch.minimum(d, _box_dist(prims, px, py, pz).amin(-1))
+        db = _box_dist(prims, px, py, pz)
+        if keep is not None:
+            db = torch.where(keep[..., S:], db, torch.full_like(db, 1e6))
+        d = torch.minimum(d, db.amin(-1))
     if prims.ground:
         d = torch.minimum(d, pz)
     return d
@@ -101,63 +133,119 @@ def scene_sdf(prims: ScenePrims, p: torch.Tensor) -> torch.Tensor:
     return _scene_dist(prims, p[..., 0], p[..., 1], p[..., 2])
 
 
-def march_plain(prims: ScenePrims, dirs: torch.Tensor, origins: torch.Tensor,
-                t0, n_steps: int, far: float, eps: float,
-                count_evals: bool = False):
+def _live(prims: ScenePrims) -> torch.Tensor:
+    """[E, S+G] bool: every sphere, the boxes whose mask is set."""
+    return torch.cat([torch.ones_like(prims.sphere_radius), prims.box_mask], dim=1) > 0
+
+
+def prim_masks(prims: ScenePrims, origins: torch.Tensor, axes: torch.Tensor,
+               cos_t: torch.Tensor, far: float) -> torch.Tensor:
+    """Which primitives each tile can see: bool [E, V, T, S+G] (spheres,
+    then boxes), the f32 counterpart of ``raymarch_tpu._prim_masks``
+    (:111-140) in its order of operations.  A primitive is kept when its
+    bounding sphere (a box's: radius ‖half‖) touches the tile's ray cone,
+    is not behind the camera or beyond ``far``, or contains the camera;
+    dead boxes (``box_mask`` 0) are never kept.
+
+    origins [V, 3], axes [V, T, 3], cos_t [V, T]."""
+    hb = prims.box_half
+    centers = torch.cat([prims.sphere_center, prims.box_pos], dim=1)           # [E, P, 3]
+    r_box = torch.sqrt(hb[..., 0] * hb[..., 0] + hb[..., 1] * hb[..., 1]
+                       + hb[..., 2] * hb[..., 2])
+    radius = torch.cat([prims.sphere_radius, r_box], dim=1)                   # [E, P]
+
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))            # [V, T]
+    vec = centers[:, None, None] - origins[None, :, None, None]               # [E, V, 1, P, 3]
+    ax = axes[None, :, :, None]                                               # [1, V, T, 1, 3]
+    a = (vec[..., 0] * ax[..., 0] + vec[..., 1] * ax[..., 1]
+         + vec[..., 2] * ax[..., 2])                                          # [E, V, T, P]
+    d2 = vec[..., 0] * vec[..., 0] + vec[..., 1] * vec[..., 1] + vec[..., 2] * vec[..., 2]
+    q = torch.sqrt(torch.clamp(d2 - a * a, min=0.0))
+    r = radius[:, None, None]
+    outside = (q * cos_t[None, :, :, None] - a * sin_t[None, :, :, None]) > r
+    behind = a < -r
+    too_far = (a - r) > far
+    contains_apex = d2 <= r * r
+    return (~(outside | behind | too_far) | contains_apex) & _live(prims)[:, None, None]
+
+
+def tile_masks(prims: ScenePrims, rays: RayTable, far: float,
+               cull: bool = True) -> torch.Tensor:
+    """The primitives each tile's march evaluates, bool [E, V, T, S+G]:
+    :func:`prim_masks` with ``cull``, else every live primitive."""
+    if cull:
+        return prim_masks(prims, rays.origins, rays.axes, rays.cos_t, far)
+    V, T = rays.cos_t.shape
+    return _live(prims)[:, None, None].expand(-1, V, T, -1)
+
+
+def march_plain(prims: ScenePrims, rays: RayTable, t0, n_steps: int, far: float,
+                eps: float, cull: bool = True, count_evals: bool = False):
     """Sphere-trace rays from per-ray start depths: the plain version of
     kernel B2.
 
-    dirs [V, 3, N] world ray directions (z-normalized in the camera frame),
-    origins [V, 3], t0 a float or [E, V, N]  →  depth [E, V, N] (``far`` on
-    a miss).  With ``count_evals`` also returns the number of scene
-    evaluations each ray needs in the kernel (its march until done, plus
-    the hit test), i32 [E, V, N]."""
-    E = prims.sphere_radius.shape[0]
-    V, _, N = dirs.shape
-    out = torch.empty((E, V, N), dtype=torch.float32, device=dirs.device)
-    evals = torch.empty((E, V, N), dtype=torch.int32, device=dirs.device)
+    ``rays`` a :class:`RayTable` (directions z-normalized in the camera
+    frame), t0 a float or [E, V, N]  →  depth [E, V, N] (``far`` on a miss).
+    Each ray evaluates the primitives :func:`tile_masks` keeps for its tile
+    (``cull``).  With ``count_evals`` also returns the work each ray needs
+    in the kernel, i64 [E, V, N, 3]: its scene evaluations (its march until
+    done, plus the hit test), and the sphere and the box distances those
+    evaluate."""
+    E, S = prims.sphere_radius.shape
+    V, _, N = rays.dirs.shape
+    dev = rays.dirs.device
+    masks = tile_masks(prims, rays, far, cull)
+    out = torch.empty((E, V, N), dtype=torch.float32, device=dev)
+    if count_evals:
+        evals = torch.empty((E, V, N, 3), dtype=torch.int64, device=dev)
     G = prims.box_pos.shape[1] if prims.box_pos is not None else 0
-    S = prims.sphere_radius.shape[1]
     chunk = max(1, _CHUNK_ELEMS // max(1, E * max(G, S, 1)))
     for v in range(V):
-        ox, oy, oz = (origins[v, i] for i in range(3))
+        ox, oy, oz = (rays.origins[v, i] for i in range(3))
         for a in range(0, N, chunk):
             b = min(N, a + chunk)
-            dx, dy, dz = (dirs[v, i, a:b][None] for i in range(3))   # [1, n]
+            dx, dy, dz = (rays.dirs[v, i, a:b][None] for i in range(3))   # [1, n]
+            keep = masks[:, v, rays.tile_of[a:b]]                            # [E, n, S+G]
             inv = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
             if isinstance(t0, torch.Tensor):
                 tz = t0[:, v, a:b].clone()
             else:
-                tz = torch.full((E, b - a), float(t0), device=dirs.device)
+                tz = torch.full((E, b - a), float(t0), device=dev)
             alive = torch.ones_like(tz, dtype=torch.bool)
-            n_eval = torch.zeros_like(tz, dtype=torch.int32)
+            n_eval = torch.zeros_like(tz, dtype=torch.int64)
             for _ in range(n_steps):
-                dist = _scene_dist(prims, ox + tz * dx, oy + tz * dy, oz + tz * dz)
-                n_eval += alive.to(torch.int32)
+                dist = _scene_dist(prims, ox + tz * dx, oy + tz * dy, oz + tz * dz, keep)
+                n_eval += alive.to(torch.int64)
                 done = (dist < eps) | (tz > far)
                 alive &= ~done
                 tz = torch.where(done, tz, tz + torch.clamp(dist, min=0.0) * inv)
-            dist = _scene_dist(prims, ox + tz * dx, oy + tz * dy, oz + tz * dz)
+            dist = _scene_dist(prims, ox + tz * dx, oy + tz * dy, oz + tz * dz, keep)
             hit = (dist < 10 * eps) & (tz <= far)
             out[:, v, a:b] = torch.where(hit, tz, torch.full_like(tz, far))
-            evals[:, v, a:b] = n_eval + 1
+            if count_evals:
+                n_eval += 1
+                evals[:, v, a:b, 0] = n_eval
+                evals[:, v, a:b, 1] = n_eval * keep[..., :S].sum(-1)
+                evals[:, v, a:b, 2] = n_eval * keep[..., S:].sum(-1)
     return (out, evals) if count_evals else out
 
 
 def render_depth(prims: ScenePrims, cam_pose, intrinsic, im_h: int, im_w: int,
                  n_steps: int = 40, far: float = 100.0, eps: float = 1e-3,
-                 coarse_to_fine: bool = False) -> torch.Tensor:
+                 coarse_to_fine: bool = False, cull: bool = True) -> torch.Tensor:
     """Sphere-traced depth images [E, V, H, W] (positive z-depth).
 
     cam_pose [V, 4, 4] world-from-camera (OpenCV convention) and intrinsic
     [3, 3] are numpy.  Prims on a CUDA device launch kernel B2, prims on the
     CPU take :func:`march_plain`.  ``coarse_to_fine`` (with H and W
     multiples of 4) marches a quarter-resolution pre-pass and refines at
-    full resolution from a conservative per-ray start, as the JAX package's
-    TPU kernel does (its XLA path ignores the flag)."""
+    full resolution from a conservative per-ray start, and ``cull`` skips
+    the primitives outside each tile's view cone, both as the JAX package's
+    TPU kernel does (its XLA path does neither)."""
     from . import raymarch_cuda
     march = (raymarch_cuda.march if prims.sphere_radius.is_cuda
              else march_plain)
     return raymarch_cuda.render_with(march, prims, cam_pose, intrinsic,
                                      im_h, im_w, n_steps=n_steps, far=far,
-                                     eps=eps, coarse_to_fine=coarse_to_fine)
+                                     eps=eps, coarse_to_fine=coarse_to_fine,
+                                     cull=cull)

@@ -3,30 +3,35 @@ and the coarse-to-fine routine.
 
 Counterpart of ``partmanip_tpu/ops/raymarch_tpu.py`` (the Pallas kernel
 ``_march_kernel``, launched by ``_render_tpu``, entry ``render_depth_tpu``).
-The kernel source is ``csrc/raymarch.cu``: one thread per ray over
-E × V × H·W, each block of one (env, view) with that env's primitives in
-shared memory; a ray marches until it is done or ``n_steps`` run out (a done
-ray never moves again, so stopping it early is exact).  It is compiled with
-``-fmad=false`` so that it repeats :func:`raymarch.march_plain` op for op.
-The TPU kernel's cone culling (``_prim_masks``) is left out: the minimum
-over primitives is the same whichever are skipped.
+The kernel source is ``csrc/raymarch.cu``: one thread block per (env, view,
+32×32-pixel tile), one thread per pixel of the tile.  The block first
+compacts the primitives its tile keeps (the mask of
+:func:`raymarch.tile_masks`, computed once per pass here and read by the
+kernel and the plain version alike) into shared memory; each ray then
+marches over those alone until it is done or ``n_steps`` run out (a done
+ray never moves again, so stopping it early is exact).  It is compiled
+with ``-fmad=false`` so that it repeats :func:`raymarch.march_plain` op for
+op, and the minimum over the kept primitives is the same in any order.
 
-* :func:`ray_table` — the per-pixel world ray directions ``[V, 3, H·W]``
-  and origins of a rig, built in float64 numpy as the JAX package builds
-  them and cast to f32 once; cached per (rig, size, device) like
-  ``_RAY_CACHE``;
+* :func:`ray_table` — per view the row-major world ray directions
+  ``[V, 3, H·W]`` and origins, and per 32×32 tile its ray cone (unit axis
+  = the mean of the tile's rays, ``cos_t`` = their least dot product with
+  it; padding rays of ragged tiles left out), built in float64 numpy as
+  ``raymarch_tpu._tile_rays`` builds them and cast to f32 once; cached per
+  (rig, size, device) like ``_RAY_CACHE``;
 * :func:`render_with` — the coarse-to-fine routine around any march (the
   kernel's or the plain one): a quarter-resolution march from 0.05, a 3×3
   min filter (out-of-bounds neighbours ignored), t0 = clip(0.9·dmin − 0.05,
-  0.05, far), nearest 4× upsample, a 16-step full-resolution refine;
+  0.05, far), nearest 4× upsample, a 16-step full-resolution refine; each
+  pass culls with the tiles of its own resolution;
 * :func:`march` — the kernel launch (CUDA tensors only); ``launch_counts``
   rises by one per launch.
 
 What bounds it on an H100: operations.  Every step of every ray evaluates
-all S spheres and the live boxes (11 and 54 f32 operations each);
-bytes are the primitives, the ray table and the image, a few MB.  The design
-keeps every ray's march in registers and the primitives in shared memory,
-so device memory is touched once per ray.
+the spheres and boxes its tile keeps (11 and 53 f32 operations each);
+bytes are the primitives, the masks, the ray table and the image, a few
+MB.  The design keeps every ray's march in registers and the kept
+primitives in shared memory, so device memory is touched once per ray.
 """
 
 from __future__ import annotations
@@ -39,16 +44,17 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import cuda_lib
-from .raymarch import ScenePrims
+from .raymarch import RayTable, ScenePrims, tile_masks
 
 SOURCE = os.path.join(cuda_lib.CSRC, "raymarch.cu")
 _ptr, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARY = cuda_lib.Library(
     "b2", SOURCE, "libraymarch.so",
-    {"rm_launch": ((_ptr, _ptr, _ptr, _ptr, _ptr, _f32, _ptr, _i32, _i32, _i32,
-                    _i32, _i32, _i32, _f32, _f32, _f32, _i32, _i32, _ptr), _i32)},
+    {"rm_launch": ((_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _f32, _ptr, _i32, _i32, _i32,
+                    _i32, _i32, _i32, _i32, _i32, _f32, _f32, _f32, _i32, _ptr),
+                   _i32)},
     extra_flags=["-fmad=false"])
-THREADS = 256
+BLK = 32                # tile edge in pixels (raymarch_tpu.BLK): 32 x 32 threads a block
 # the refine march of coarse-to-fine runs this many steps (raymarch_tpu.py:348)
 REFINE_STEPS = 16
 
@@ -61,10 +67,49 @@ _RAY_CACHE: dict = {}
 # ray tables
 # ----------------------------------------------------------------------
 
-def ray_table(cam_pose, intrinsic, im_h: int, im_w: int, device):
-    """(dirs f32 [V, 3, H·W], origins f32 [V, 3]) on ``device``: world ray
-    directions with camera-frame z = 1, row-major pixels.  Built in float64
-    numpy and cast once (``raymarch_tpu._tile_rays`` :60-82); cached."""
+def _tile_cones(cam_pose, intrinsic, im_h: int, im_w: int):
+    """(axes [V, T, 3], cos_t [V, T], tile_of [H·W]) of 32×32 tiles in
+    row-major tile order: ``raymarch_tpu._tile_rays`` :60-101 (the same
+    float64 operations on the same padded ray list, so the f32 tables come
+    out equal)."""
+    V = cam_pose.shape[0]
+    fx, fy = intrinsic[0, 0], intrinsic[1, 1]
+    cx, cy = intrinsic[0, 2], intrinsic[1, 2]
+    u = (np.arange(im_w) - cx) / fx
+    v = (np.arange(im_h) - cy) / fy
+    uu, vv = np.meshgrid(u, v)
+    dirs_cam = np.stack([uu, vv, np.ones_like(uu)], -1).reshape(-1, 3)
+    tile = BLK * BLK
+    nbw = -(-im_w // BLK)
+    T = -(-im_h // BLK) * nbw
+    ii, jj = np.meshgrid(np.arange(im_h), np.arange(im_w), indexing="ij")
+    tile_of = ((ii // BLK) * nbw + (jj // BLK)).reshape(-1)
+    ray_pos = tile_of * tile + ((ii % BLK) * BLK + (jj % BLK)).reshape(-1)
+    dirs_pad = np.tile(np.array([0.0, 0.0, 1.0]), (T * tile, 1))
+    dirs_pad[ray_pos] = dirs_cam
+    valid = np.zeros(T * tile, bool)
+    valid[ray_pos] = True
+    dirs_w = np.einsum("nc,vbc->vnb", dirs_pad, cam_pose[:, :3, :3])
+    dn = dirs_w / np.linalg.norm(dirs_w, axis=-1, keepdims=True)
+    dn_t = dn.reshape(V, T, tile, 3)
+    valid = valid.reshape(T, tile)
+    axes = np.empty((V, T, 3), np.float64)
+    cos_t = np.empty((V, T), np.float64)
+    for t in range(T):
+        sel = dn_t[:, t, valid[t]]
+        ax = sel.mean(axis=1)
+        ax /= np.linalg.norm(ax, axis=-1, keepdims=True)
+        axes[:, t] = ax
+        cos_t[:, t] = np.einsum("vnc,vc->vn", sel, ax).min(axis=1)
+    return (axes.astype(np.float32), np.clip(cos_t, -1.0, 1.0).astype(np.float32),
+            tile_of)
+
+
+def ray_table(cam_pose, intrinsic, im_h: int, im_w: int, device) -> RayTable:
+    """The :class:`raymarch.RayTable` of a rig on ``device``: world ray
+    directions with camera-frame z = 1 for row-major pixels, the origins,
+    and the tile cones.  Built in float64 numpy and cast once
+    (``raymarch_tpu._tile_rays`` :60-101); cached."""
     cam_pose = np.asarray(cam_pose)
     intrinsic = np.asarray(intrinsic)
     key = (cam_pose.tobytes(), intrinsic.tobytes(), im_h, im_w, str(device))
@@ -79,8 +124,13 @@ def ray_table(cam_pose, intrinsic, im_h: int, im_w: int, device):
     dirs_cam = np.stack([uu, vv, np.ones_like(uu)], -1).reshape(-1, 3)
     dirs_w = np.einsum("nc,vbc->vnb", dirs_cam, cam_pose[:, :3, :3])  # [V, N, 3]
     dirs = np.ascontiguousarray(np.moveaxis(dirs_w, -1, 1).astype(np.float32))
-    hit = (torch.as_tensor(dirs, device=device),
-           torch.as_tensor(cam_pose[:, :3, 3].astype(np.float32), device=device))
+    axes, cos_t, tile_of = _tile_cones(cam_pose, intrinsic, im_h, im_w)
+    hit = RayTable(dirs=torch.as_tensor(dirs, device=device),
+                   origins=torch.as_tensor(cam_pose[:, :3, 3].astype(np.float32),
+                                           device=device),
+                   axes=torch.as_tensor(axes, device=device),
+                   cos_t=torch.as_tensor(cos_t, device=device),
+                   tile_of=torch.as_tensor(tile_of, device=device), im_h=im_h, im_w=im_w)
     _RAY_CACHE[key] = hit
     return hit
 
@@ -99,23 +149,28 @@ def pack_prims(prims: ScenePrims):
     return sph, box
 
 
-def march(prims: ScenePrims, dirs: torch.Tensor, origins: torch.Tensor, t0,
-          n_steps: int, far: float, eps: float) -> torch.Tensor:
+def march(prims: ScenePrims, rays: RayTable, t0, n_steps: int, far: float,
+          eps: float, cull: bool = True) -> torch.Tensor:
     """Kernel B2: the march of :func:`raymarch.march_plain` (same arguments,
     depth [E, V, N]) in one launch.  CUDA tensors only."""
     sph, box = pack_prims(prims)
     E, S = sph.shape[:2]
     G = box.shape[1]
+    dirs, origins = rays.dirs, rays.origins
     V, three, N = dirs.shape
+    T = rays.cos_t.shape[1]
+    H, W = rays.im_h, rays.im_w
     dev = sph.device
     if not (sph.is_cuda and box.is_cuda and dirs.is_cuda and origins.is_cuda):
         raise ValueError("kernel B2 needs CUDA tensors (the plain version is "
                          "raymarch.march_plain)")
     if len({sph.device, box.device, dirs.device, origins.device}) != 1:
         raise ValueError("kernel B2 needs every tensor on one device")
-    if three != 3 or tuple(origins.shape) != (V, 3) or box.shape[0] != E:
+    if (three != 3 or tuple(origins.shape) != (V, 3) or box.shape[0] != E or N != H * W
+            or T != -(-H // BLK) * -(-W // BLK)):
         raise ValueError(f"shapes sph {tuple(sph.shape)}, box {tuple(box.shape)}, "
-                         f"dirs {tuple(dirs.shape)}, origins {tuple(origins.shape)}")
+                         f"dirs {tuple(dirs.shape)}, origins {tuple(origins.shape)}, "
+                         f"{T} tiles of {H}x{W}")
     if dirs.dtype != torch.float32 or origins.dtype != torch.float32:
         raise TypeError("ray tables must be f32")
     dirs, origins = dirs.contiguous(), origins.contiguous()
@@ -126,20 +181,20 @@ def march(prims: ScenePrims, dirs: torch.Tensor, origins: torch.Tensor, t0,
         t0_ptr, t0_const = t0.data_ptr(), 0.0
     else:
         t0_ptr, t0_const = None, float(t0)
-    if E < 1 or V < 1 or N < 1 or (N + THREADS - 1) // THREADS >= 2 ** 31:
+    if E < 1 or V < 1 or N < 1 or T >= 2 ** 31:
         raise ValueError(f"empty or oversized render E={E} V={V} N={N}")
     if E > 65535 or V > 65535:
         raise ValueError("kernel B2 takes at most 65535 envs and views")
-    if (4 * S + 11 * G) * 4 > 48 * 1024:
+    if (4 * S + 10 * G) * 4 > 48 * 1024:
         raise ValueError(f"{S} spheres and {G} boxes do not fit the kernel's "
                          f"48 KB of shared memory")
+    masks = tile_masks(prims, rays, far, cull).to(torch.uint8).contiguous()
     out = torch.empty((E, V, N), dtype=torch.float32, device=dev)
     lib = LIBRARY.load()
-    err = lib.rm_launch(sph.data_ptr(), box.data_ptr(), dirs.data_ptr(),
+    err = lib.rm_launch(sph.data_ptr(), box.data_ptr(), masks.data_ptr(), dirs.data_ptr(),
                         origins.data_ptr(), t0_ptr, t0_const, out.data_ptr(),
-                        E, V, N, S, G, int(n_steps), float(far), float(eps),
-                        float(10 * eps), int(bool(prims.ground)), THREADS,
-                        cuda_lib.stream_of(out))
+                        E, V, H, W, T, S, G, int(n_steps), float(far), float(eps),
+                        float(10 * eps), int(bool(prims.ground)), cuda_lib.stream_of(out))
     cuda_lib.check_launch(err, "raymarch (B2)")
     launch_counts["b2"] += 1
     return out
@@ -159,27 +214,33 @@ def coarse_start(d_coarse: torch.Tensor, far: float) -> torch.Tensor:
     return t0.repeat_interleave(4, dim=2).repeat_interleave(4, dim=3)
 
 
+def coarse_intrinsic(intrinsic) -> np.ndarray:
+    """The intrinsic of the quarter-resolution pass (f32, as the TPU
+    wrapper casts it)."""
+    intr_c = np.asarray(intrinsic, np.float64).copy()
+    intr_c[:2] /= 4.0
+    return intr_c.astype(np.float32)
+
+
 def render_with(march_fn, prims: ScenePrims, cam_pose, intrinsic, im_h: int,
                 im_w: int, n_steps: int = 40, far: float = 100.0,
-                eps: float = 1e-3, coarse_to_fine: bool = False) -> torch.Tensor:
+                eps: float = 1e-3, coarse_to_fine: bool = False,
+                cull: bool = True) -> torch.Tensor:
     """Depth images [E, V, H, W] through ``march_fn`` (:func:`march` or
     ``raymarch.march_plain``), exact or coarse-to-fine
-    (``raymarch_tpu.render_depth_tpu`` :334-351)."""
+    (``raymarch_tpu.render_depth_tpu`` :334-351), culled or not."""
     E = prims.sphere_radius.shape[0]
     dev = prims.sphere_radius.device
     cam_pose = np.asarray(cam_pose)
     V = cam_pose.shape[0]
     if coarse_to_fine and im_h % 4 == 0 and im_w % 4 == 0:
         hc, wc = im_h // 4, im_w // 4
-        intr_c = np.asarray(intrinsic, np.float64).copy()
-        intr_c[:2] /= 4.0
-        dirs_c, org_c = ray_table(cam_pose, intr_c.astype(np.float32), hc, wc, dev)
-        d_c = march_fn(prims, dirs_c, org_c, 0.05, n_steps, far, eps)
+        rays_c = ray_table(cam_pose, coarse_intrinsic(intrinsic), hc, wc, dev)
+        d_c = march_fn(prims, rays_c, 0.05, n_steps, far, eps, cull=cull)
         t0 = coarse_start(d_c.reshape(E, V, hc, wc), far).reshape(E, V, -1)
-        dirs, org = ray_table(cam_pose, intrinsic, im_h, im_w, dev)
-        out = march_fn(prims, dirs, org, t0.contiguous(), REFINE_STEPS, far, eps)
+        rays = ray_table(cam_pose, intrinsic, im_h, im_w, dev)
+        out = march_fn(prims, rays, t0.contiguous(), REFINE_STEPS, far, eps, cull=cull)
     else:
-        dirs, org = ray_table(cam_pose, intrinsic, im_h, im_w, dev)
-        out = march_fn(prims, dirs, org, 0.05, n_steps, far, eps)
+        rays = ray_table(cam_pose, intrinsic, im_h, im_w, dev)
+        out = march_fn(prims, rays, 0.05, n_steps, far, eps, cull=cull)
     return out.reshape(E, V, im_h, im_w)
-

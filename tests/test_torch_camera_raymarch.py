@@ -2,9 +2,12 @@
 package, on the CPU (the plain versions of kernel B2).
 
 * camera poses, intrinsics and the Kabsch fit to 1e-6;
-* the exact march against ``raymarch.render_depth`` (the JAX package's XLA
-  path) and coarse-to-fine against ``raymarch_tpu.render_depth_tpu(...,
-  interpret=True, coarse_to_fine=True)`` (the Pallas kernel, interpreted):
+* the exact unculled march (``cull=False``) against
+  ``raymarch.render_depth`` (the JAX package's XLA path, which does not
+  cull) and the culled coarse-to-fine march against
+  ``raymarch_tpu.render_depth_tpu(..., interpret=True, coarse_to_fine=True)``
+  (the Pallas kernel, interpreted; ``test_torch_raymarch_cull.py`` holds
+  the culling itself):
   99.9 % of pixels within 1e-4 m and at most 1e-4 m where both hit
   (``tests/test_vision.py`` asks 98 % within 1e-3 and 1e-2);
 * the coarse-to-fine start (3×3 min filter, margins, 4× upsample) equal to
@@ -92,7 +95,7 @@ def test_camera_poses_and_intrinsics(look_at, radius, views):
 def test_exact_march_matches_the_xla_renderer():
     poses, intr = _rig()
     want = np.asarray(jrm.render_depth(_prims("jax"), poses, intr, 36, 64))
-    got = trm.render_depth(_prims("torch"), poses, intr, 36, 64).numpy()
+    got = trm.render_depth(_prims("torch"), poses, intr, 36, 64, cull=False).numpy()
     _assert_depth_close(got, want)
 
 
@@ -124,14 +127,21 @@ def test_coarse_start_equals_the_tpu_wrappers_filter():
 
 def test_march_counts_its_scene_evaluations():
     poses, intr = _rig()
-    dirs, org = raymarch_cuda.ray_table(poses, intr, 36, 64, "cpu")
-    assert dirs.shape == (3, 3, 36 * 64) and dirs.dtype == torch.float32
-    depth, evals = trm.march_plain(_prims("torch"), dirs, org, 0.05, 40, 100.0, 1e-3,
+    rays = raymarch_cuda.ray_table(poses, intr, 36, 64, "cpu")
+    assert rays.dirs.shape == (3, 3, 36 * 64) and rays.dirs.dtype == torch.float32
+    depth, evals = trm.march_plain(_prims("torch"), rays, 0.05, 40, 100.0, 1e-3,
                                    count_evals=True)
-    assert torch.equal(depth, trm.march_plain(_prims("torch"), dirs, org, 0.05, 40,
+    assert torch.equal(depth, trm.march_plain(_prims("torch"), rays, 0.05, 40,
                                               100.0, 1e-3))
-    assert int(evals.min()) >= 2 and int(evals.max()) <= 41
-    assert raymarch_cuda.ray_table(poses, intr, 36, 64, "cpu")[0] is dirs   # cached
+    n = evals[..., 0]
+    assert int(n.min()) >= 2 and int(n.max()) <= 41
+    # the kept spheres and boxes of each ray's tile, per evaluation
+    keep = trm.tile_masks(_prims("torch"), rays, 100.0)[:, :, rays.tile_of]   # [E, V, N, 4]
+    assert torch.equal(evals[..., 1], n * keep[..., :2].sum(-1))
+    assert torch.equal(evals[..., 2], n * keep[..., 2:].sum(-1))
+    live = torch.tensor([4, 3])[:, None, None]              # env 1 has a dead box
+    assert bool((evals[..., 1] + evals[..., 2] <= live * n).all())
+    assert raymarch_cuda.ray_table(poses, intr, 36, 64, "cpu") is rays      # cached
 
 
 def test_cpu_prims_never_reach_the_kernel(monkeypatch):
@@ -144,9 +154,9 @@ def test_cpu_prims_never_reach_the_kernel(monkeypatch):
     trm.render_depth(_prims("torch"), *_rig(), 36, 64, coarse_to_fine=True)
     assert raymarch_cuda.launch_counts["b2"] == before
     monkeypatch.undo()
-    dirs, org = raymarch_cuda.ray_table(*_rig(), 36, 64, "cpu")
+    rays = raymarch_cuda.ray_table(*_rig(), 36, 64, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        raymarch_cuda.march(_prims("torch"), dirs, org, 0.05, 40, 100.0, 1e-3)
+        raymarch_cuda.march(_prims("torch"), rays, 0.05, 40, 100.0, 1e-3)
 
 
 def test_build_command_and_c_signature(monkeypatch):
@@ -158,7 +168,7 @@ def test_build_command_and_c_signature(monkeypatch):
         src = f.read()
     params = re.search(r"int rm_launch\((.*?)\)", src, re.S).group(1).split(",")
     argtypes, _ = raymarch_cuda.LIBRARY.signatures["rm_launch"]
-    assert len(argtypes) == len(params) == 19
+    assert len(argtypes) == len(params) == 21
     kinds = [("float" if "float " in p and "*" not in p else
               "int" if p.split()[0] == "int" else "ptr") for p in params]
     import ctypes

@@ -7,7 +7,7 @@ package.
 * the port's own init: orthogonal with the JAX package's gains, zero biases,
   f32 compute whatever ``dtype`` says;
 * one evaluation round of the numpy-drawn PointNet student on open_drawer
-  ``depth_pc`` (2 envs, 36×64, exact march, 3 steps, the committed expert as
+  ``depth_pc`` (2 envs, 36×64, exact unculled march, 3 steps, the committed expert as
   the teacher): every metric within 1e-4 of the JAX round
   (``tests/golden_torch/vision_depth_pc.npz``; the scene states agree to
   about 1e-6 and the two point clouds point for point, see
@@ -98,6 +98,7 @@ def drawer_dagger(tmp_path_factory):
     tv.small_cfg(cfg)
     random.seed(tv.OBJ_SEED)
     env = OpenDrawerEnv(cfg["task"], sp, device="cpu")
+    env.vision_rig.cull = False          # the JAX env's CPU (XLA) renderer does not cull
     place = env._random_obj_root
     env._random_obj_root = lambda rng, n, draws=None: place(rng, n, tv.draws())
     acfg = dict(cfg["algo"], teacher=tv.TEACHER, test_only=True)

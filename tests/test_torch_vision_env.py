@@ -1,7 +1,8 @@
 """The open_drawer ``depth_pc`` slice as a whole: the port's env on the CPU
 (plain raymarcher, plain FPS) against the JAX package's env, at 2 envs,
-3 views of 36×64 (``im_scale`` 8) and the exact march on both sides (the
-JAX package's CPU renderer has no coarse-to-fine), over the reset and two
+3 views of 36×64 (``im_scale`` 8) and the exact unculled march on both sides
+(the JAX package's CPU renderer has no coarse-to-fine and no cone culling:
+the port's rig sets ``cull`` off), over the reset and two
 scripted steps from the same cabinet placements.
 
 The JAX side is jitted once into ``tests/golden_torch/vision_depth_pc.npz``
@@ -49,6 +50,7 @@ def rollout(tmp_path_factory):
     tv.small_cfg(cfg)
     random.seed(tv.OBJ_SEED)
     env = OpenDrawerEnv(cfg["task"], sp, device="cpu")
+    env.vision_rig.cull = False          # the JAX env's CPU (XLA) renderer does not cull
     draws = tv.draws()
     acts = tv.actions(env.num_actions)
     with torch.no_grad():
@@ -64,7 +66,8 @@ def rollout(tmp_path_factory):
 def test_rig_and_observation_sizes(rollout):
     env, trace = rollout
     rig = env.vision_rig
-    assert (rig.num_view, rig.im_h, rig.im_w, rig.coarse_to_fine) == (3, 36, 64, False)
+    assert (rig.num_view, rig.im_h, rig.im_w, rig.coarse_to_fine, rig.cull) == \
+        (3, 36, 64, False, False)
     assert env.num_obs["depth_pc"] == 3072
     for obs, _ in trace:
         assert obs["depth_pc"].shape == (tv.E, 3072) and obs["depth_pc"].dtype == torch.float32
