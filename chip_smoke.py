@@ -281,10 +281,48 @@ def _field_errors(a, b):
 
 
 @torch.no_grad()
+def rounding_shares(n=200_000):
+    """The share of ``n`` random inputs on which each formula that
+    ``csrc/fused_geom.cuh`` copies from PyTorch's CUDA kernels equals their
+    result bit for bit: ``torch.linalg.cross`` as ``fma(a1, b2, -(a2 b1))``
+    (beside the plain ``a1 b2 - a2 b1``), ``torch.linalg.norm`` of three
+    floats as ``sqrt((x^2 + z^2) + y^2)`` (beside the order x, y, z) and
+    ``ops/rotations.quat_rotate`` as separately rounded operations.  A
+    PyTorch whose kernels round otherwise lowers the copied formulas'
+    shares, and B1b's / B1c's contact tests may then flip against the plain
+    version."""
+    from partmanip_tpu_torch.ops import rotations as rot
+    from partmanip_tpu_torch.ops.fps import fma_f32 as fma
+    rs = np.random.RandomState(0)
+    share = lambda a, b: float((a == b).reshape(n, -1).all(-1).float().mean())
+    cr = lambda p, r: torch.stack([fma(p[:, 1], r[:, 2], -(p[:, 2] * r[:, 1])),
+                                   fma(p[:, 2], r[:, 0], -(p[:, 0] * r[:, 2])),
+                                   fma(p[:, 0], r[:, 1], -(p[:, 1] * r[:, 0]))], -1)
+    a, b = (torch.tensor(rs.randn(n, 3).astype(np.float32)) for _ in range(2))
+    cross = torch.linalg.cross(a.cuda(), b.cuda()).cpu()
+    (a0, a1, a2), (b0, b1, b2) = a.unbind(-1), b.unbind(-1)
+    x = torch.tensor(np.abs(rs.randn(n, 3)).astype(np.float32))
+    x0, x1, x2 = x.unbind(-1)
+    norm = torch.linalg.norm(x.cuda(), dim=-1).cpu()
+    q = torch.tensor(rs.randn(n, 4).astype(np.float32))
+    v = torch.tensor(rs.randn(n, 3).astype(np.float32))
+    t = 2.0 * cr(q[:, :3], v)
+    return {"cross_fma(a1,b2,-(a2*b1))": share(cr(a, b), cross),
+            "cross_mul_mul_sub": share(torch.stack(
+                [a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], -1), cross),
+            "norm_sqrt((x^2+z^2)+y^2)": share(torch.sqrt((x0 * x0 + x2 * x2) + x1 * x1), norm),
+            "norm_sqrt((x^2+y^2)+z^2)": share(torch.sqrt((x0 * x0 + x1 * x1) + x2 * x2), norm),
+            "quat_rotate": share((v + q[:, 3:] * t) + cr(q[:, :3], t),
+                                 rot.quat_rotate(q.cuda(), v.cuda()).cpu())}
+
+
+@torch.no_grad()
 def phase_kernel_check(path, env, cases):
     """The kernel against ``engine._inner_step`` for one inner step on each
     case, plus k inner steps in one launch against k launches of one step
-    (k = the inner steps of ``path.chain_physics_steps`` physics steps)."""
+    (k = the inner steps of ``path.chain_physics_steps`` physics steps).
+    B1b / B1c also report :func:`rounding_shares`, the PyTorch rounding
+    their contact geometry copies."""
     from partmanip_tpu_torch.sim import engine, fused
     from partmanip_tpu_torch.utils import contact_states
     p = env.scene.params
@@ -321,10 +359,14 @@ def phase_kernel_check(path, env, cases):
     dead = [c for c, m in counts.items() if m == 0]
     if dead:
         failures.append(f"contact case has dead branches {dead}: {counts}")
+    rounding = rounding_shares() if path.kernel in ("b1b", "b1c") else None
     emit("kernel_check", variant=path.kernel, num_envs=env.num_envs,
-         tolerances={f: TOL[f] for f in errs}, cases=report, failures=failures)
+         tolerances={f: TOL[f] for f in errs}, cases=report, failures=failures,
+         **({"rounding_share_bit_equal": rounding} if rounding else {}))
     if failures:
-        raise RuntimeError(f"kernel_check ({path.kernel}) failed: " + "; ".join(failures))
+        raise RuntimeError(f"kernel_check ({path.kernel}) failed: " + "; ".join(failures)
+                           + (f" (PyTorch's rounding, share bit-equal: {rounding})"
+                              if rounding else ""))
     return worst
 
 
@@ -538,7 +580,8 @@ def phase_timing(path, env, sim, targets, contact_case, repeats=20):
     """Kernel, wrapper and plain-version times at the main path's shapes
     (E = 2048, one physics step = substeps x inner_substeps inner steps per
     launch), by CUDA events, on the path's rollout states; the kernel also
-    on the hand-made contact states, where the contact branches run."""
+    on the hand-made contact states, where the contact branches run.  For
+    B1b / B1c also :func:`warp_kernel_timing` (env sweep, occupancy)."""
     from partmanip_tpu_torch.sim import engine, fused
     from partmanip_tpu_torch.utils import contact_states
     p = env.scene.params
@@ -567,15 +610,80 @@ def phase_timing(path, env, sim, targets, contact_case, repeats=20):
     if env.scene.obj_grids is not None:
         nbytes += touching["grid_queries_inside"] * 8 * 4
     ops_ms, bytes_ms = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    return {"ms": kernel_ms, "kernel_ms": kernel_ms, "one_inner_step_ms": kernel1_ms,
-            "control_step_ms": env.control_freq_inv * kernel_ms,
-            "contact_case_ms": contact_ms, "wrapper_ms": wrapper_ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "bound_operations_ms": ops_ms, "bound_bytes_ms": bytes_ms,
-            "flops_per_launch": flops, "bytes_per_launch": nbytes,
-            "touching": touching, "num_envs": E, "n_steps": n, "library_ms": None}
+    out = {"ms": kernel_ms, "kernel_ms": kernel_ms, "one_inner_step_ms": kernel1_ms,
+           "control_step_ms": env.control_freq_inv * kernel_ms,
+           "contact_case_ms": contact_ms, "wrapper_ms": wrapper_ms,
+           "plain_ms": plain_ms,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "bound_operations_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+           "flops_per_launch": flops, "bytes_per_launch": nbytes,
+           "touching": touching, "num_envs": E, "n_steps": n, "library_ms": None}
+    if env.scene.obj_tree is not None:
+        out.update(warp_kernel_timing(env.scene, buf, anc_b, n))
+    return out
+
+
+SWEEP_ENVS = (256, 1024, 2048, 4096, 16384)
+
+
+def repeat_envs(scene, idx):
+    """The scene with its per-env object specs taken at ``idx`` (env e of
+    the new scene is env idx[e] of this one; shared leaves stay)."""
+    E0 = scene.obj_tree.parent.shape[0]
+
+    def take(part):
+        if part is None:
+            return None
+        return type(part)(*[x[idx] if x.shape[0] == E0 else x for x in part])
+    return scene._replace(obj_tree=take(scene.obj_tree), obj_boxes=take(scene.obj_boxes),
+                          obj_grids=take(scene.obj_grids))
+
+
+@torch.no_grad()
+def warp_kernel_timing(scene, buf, anc_b, n, repeats=10):
+    """B1b / B1c (a warp per env): the launch configuration (the launch's
+    inputs), the blocks the runtime keeps resident per SM (its occupancy
+    query), the kernel's device time at the main path's shapes
+    (``torch.profiler``), and its time per launch at each env count of
+    SWEEP_ENVS (per call, as ``ms``, and queued back to back), the state
+    made by repeating the 2048-env state's columns (and the envs' cabinets
+    alike)."""
+    from partmanip_tpu_torch.sim import fused
+    E0 = buf.shape[1]
+    blocks_per_sm = fused.occupancy(scene)
+    cfg = fused.launch_config(E0, fused._dims(scene))
+    device_ms, _ = _device_ms(lambda: fused.launch_packed(scene, buf, anc_b, n),
+                              ["fused_inner_step_obj"])
+    by_envs, queued_by_envs, keep = {}, {}, []
+    for E in SWEEP_ENVS:
+        idx = torch.arange(E, device=buf.device) % E0
+        scene_e = repeat_envs(scene, idx)
+        buf_e, anc_e = buf[:, idx].contiguous(), anc_b[:, idx].contiguous()
+        keep.append(scene_e)             # no id() of a packed scene is reused
+        for _ in range(2):
+            fused.launch_packed(scene_e, buf_e, anc_e, n)
+        by_envs[str(E)] = _timed(lambda: fused.launch_packed(scene_e, buf_e, anc_e, n), repeats)
+        queued_by_envs[str(E)] = _timed_queued(
+            lambda: fused.launch_packed(scene_e, buf_e, anc_e, n), repeats)
+    return {"ms_by_envs": by_envs, "queued_ms_by_envs": queued_by_envs,
+            "kernel_device_ms": device_ms, "launch_config": cfg,
+            "occupancy": {"blocks_per_sm": blocks_per_sm}}
+
+
+def _timed_queued(fn, reps):
+    """Milliseconds per call of ``fn`` over ``reps`` calls queued back to
+    back between two CUDA events: the device's time per launch wherever the
+    host enqueues faster than the kernel runs (the per-call events of
+    :func:`_timed` also hold the host's time to reach the launch)."""
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    fn()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def _timed(fn, reps):

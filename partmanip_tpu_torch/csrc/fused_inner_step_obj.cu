@@ -20,29 +20,6 @@
 // dof friction (linearised inside friction_veps) and the contact reactions
 // act on it.
 //
-// Design.  As B1a (fused_inner_step.cu): one thread owns one env, the loop
-// of n_steps inner steps runs inside one launch with the state in
-// registers / local memory, the state arrives env-minor ([feature, E]) and
-// the robot's description lives in __constant__ memory (all threads read
-// the same address).  The cabinet differs from env to env (env e holds
-// object e % n_obj, so one warp touches every object): its description is
-// one ObjSpec record per distinct object in global memory, read through the
-// read-only path at the env's obj_id; constant memory would serialise those
-// divergent reads.  Where the TPU kernel resolves box links, ancestors and
-// anchor frames by masked sums over Lo and G, this kernel indexes.  The
-// impulse budget of the box contacts counts the touching pairs of the whole
-// env, so the narrowphase runs twice: pass A counts the touching pairs,
-// keeps one bit per (sphere, box) pair and the best box per sphere; pass B
-// recomputes the geometry of the touching pairs only and applies the
-// forces.  Box Jacobian columns are recomputed per touching pair instead of
-// holding Jv_box (3 x G x Do).
-//
-// What bounds it on an H100: as for B1a, not device memory (about 150
-// floats of state in and out per env and launch, and one 2.6 KB object
-// record read per env) but f32 latency and the launch: each thread runs a
-// long dependent chain (12x12 and 4x4 Cholesky solves twice per inner step,
-// 450 sphere-box distance tests) with its working set in local memory.
-//
 // B1c (FIS_K > 0) replaces the same Pallas kernel with n_grid > 0
 // (partmanip_tpu/sim/fused.py:863-890) together with its narrowphase
 // _grid_narrowphase (:1415), which the TPU build runs in XLA between one
@@ -56,22 +33,80 @@
 // filtering, whose 8-bit interpolation weights are not that arithmetic; a
 // query outside its grid's interior cells skips its 8 loads (the reference
 // then returns exactly outside_value = 1 and a zero gradient).  The grid
-// pairs have an impulse budget of their own (a second penalty_forces call
-// in the plain version), the best grid per sphere (first minimum, partner id
-// 2 + G + k) is considered after the boxes, anchors may live in grid frames,
-// and the reactions reach the object through the grid-link Jacobians at the
-// grid origin.  Like the box pairs, the grid pairs run in two passes (count
-// and mask, then forces on the touching pairs only, with the query
-// recomputed).  The geoms' records are a second table (GridSpec) indexed by
-// the same obj_id.  What bounds it: as B1b, plus S x K trilinear queries of
-// 8 loads per inner step from a 30.9 MB stack that stays in L2.
+// pairs have an impulse budget of their own, the best grid per sphere
+// (first minimum, partner id 2 + G + k) is considered after the boxes,
+// anchors may live in grid frames, and the reactions reach the object
+// through the grid-link Jacobians at the grid origin.
+//
+// Design: one warp per env.  The TPU kernel runs each env serially on one
+// lane of an (8, 128) tile (fused.py:744).  Carried over literally, one
+// thread per env left 64 warps for 132 SMs at 2048 envs, each thread a
+// 37 k-operation dependent chain per inner step with 255 registers and its
+// working set spilled to local memory, and every read of the cabinet record
+// replayed over up to 16 records in a warp.  Here a warp owns an env and
+// its 32 lanes split each phase of the inner step:
+//   - forward kinematics of both trees at once, the robot on lanes 0..15,
+//     the object on 16..31: lanes over links form each joint's rotation and
+//     translation (the sines and cosines), lanes 0 and 16 compose the two
+//     chains side by side, lanes over dofs read the world axes;
+//   - mass matrix: lanes over links rotate the inertias, lanes over
+//     (link, dof) form the Jacobian columns, lanes over the lower-triangle
+//     entries sum over links in link order;
+//   - lanes over spheres place them (the ground budget counted by ballot),
+//     lanes over (sphere, dof) form the sphere Jacobians;
+//   - narrowphase pass A: lanes over the (sphere, active box) pairs and, for
+//     B1c, the (sphere, active grid) pairs; each writes its masked depth
+//     (the depth if the pair touches, else 1e9) and the warp counts the
+//     touching pairs by ballot (the impulse budgets are exact integers);
+//   - pass B, a lane per sphere: the sphere scans its pairs in box order
+//     for the touching mask and the first minimum (strict <, the ground ->
+//     boxes -> grids order kept), then computes forces, anchors and its
+//     part of the object's reaction as the serial version does; the parts
+//     are summed over the lanes by a butterfly of fixed order;
+//   - J^T F and J^T N J: lanes over (d, f) entries, each summing over the
+//     touching spheres in sphere order;
+//   - the two-pass effort-clamped solves of both trees at once, a lane per
+//     dof (the object's 4 rows padded to the robot's 12 with identity
+//     rows), the Cholesky factor and the substitutions across lanes by
+//     shuffles (fused_warp.cuh).
+// No float atomics: every sum has one order, so k inner steps in one launch
+// equal k launches of one step bit for bit.
+//
+// The contact geometry (link poses, sphere centres, geom frames, a sphere's
+// point in a geom's frame, box distances, the trilinear lookup) is rounded
+// as the plain version rounds it on the card (fused_geom.cuh): a contact
+// whose depth sits at 0 or whose grid query sits on a cell face (where the
+// trilinear gradient jumps) falls on the same side of the test in both.
+//
+// The working set lives in shared memory, not in spilled registers: the
+// robot description (struct Spec, 3.5 KB) once per block of FIS_WARPS envs,
+// and per env its cabinet record (ObjSpec, and GridSpec for B1c), copied in
+// once per launch, plus struct Work (state, link poses, M, A_c, box poses,
+// sphere records, a scratch area reused phase by phase).  About 12 KB per
+// env and 52 KB per block of 4 envs, so the runtime keeps 4 blocks (16
+// warps) on an SM (fis_occupancy), 528 blocks on 132 SMs, against 512 blocks
+// at 2048 envs.  The n_steps loop stays inside the launch with the state
+// on chip.
+//
+// What bounds it on an H100: not device memory (about 150 floats of state
+// in and out per env and launch, plus one 2.6 KB cabinet record per env)
+// but the latency of one env's chain: the serial parts of each inner step
+// (the link chains, the Cholesky factor's columns and the substitutions,
+// each a shuffle, an IEEE square root or division and a select) run on few
+// lanes, and 16 warps on an SM hide only part of it.  The FIS_PHASES build
+// counts each phase's clock cycles (scripts/prof_torch_fused_phases.py).
+// B1c adds S x K trilinear queries of 8 loads per inner step from a 30.9 MB
+// stack that stays in L2.
 //
 // Numerics follow the plain version literally (see fused_common.cuh); what
-// differs is fma contraction and the order of sums.
+// differs, outside the contact geometry, is fma contraction and the order
+// of sums.
 
 #include <cuda_runtime.h>
 
 #include "fused_common.cuh"
+#include "fused_geom.cuh"
+#include "fused_warp.cuh"
 
 #ifndef FIS_L
 #define FIS_L 16
@@ -94,8 +129,9 @@
 #ifndef FIS_K
 #define FIS_K 0
 #endif
-#ifndef FIS_BLOCK
-#define FIS_BLOCK 32
+// envs (warps) per block; 16 / FIS_WARPS blocks are meant to share an SM
+#ifndef FIS_WARPS
+#define FIS_WARPS 4
 #endif
 
 #define L FIS_L
@@ -106,6 +142,7 @@
 #define G FIS_G
 
 static_assert(G <= 32, "the touching pairs of a sphere are kept as one 32-bit mask");
+static_assert(L <= 32 && LO <= 32 && S <= 32 && D <= 32, "one lane per link, sphere and dof");
 #if FIS_K > 0
 #define K FIS_K
 #define GX FIS_GX
@@ -114,9 +151,10 @@ static_assert(G <= 32, "the touching pairs of a sphere are kept as one 32-bit ma
 static_assert(K <= 32, "the touching grid pairs of a sphere are kept as one 32-bit mask");
 #endif
 
-// Robot, spheres and contact constants, in constant memory.  Mirrored field
-// by field by partmanip_tpu_torch/sim/fused.py:pack_spec_obj; every member
-// is 4 bytes wide, so the struct has no padding.
+// Robot, spheres and contact constants, copied into each block's shared
+// memory.  Mirrored field by field by
+// partmanip_tpu_torch/sim/fused.py:pack_spec_obj; every member is 4 bytes
+// wide, so the struct has no padding.
 struct Spec {
     int parent[L];
     int joint_type[L];
@@ -217,13 +255,14 @@ struct GridStack {
 };
 
 // Trilinear SDF value and gradient of grid gid at local point p
-// (ops/sdf.grid_query_grad, same operation order).  Outside the interior
-// cells: value 1 (outside_value) and a zero gradient, without a load.
+// (ops/sdf.grid_query_grad, same operations, each rounded on its own as
+// fused_geom.cuh says).  Outside the interior cells: value 1
+// (outside_value) and a zero gradient, without a load.
 __device__ __forceinline__ float grid_query_grad(const GridStack& st, int gid, V3 p, V3* grad) {
     const float vs = __ldg(st.voxel + gid);
-    const float ix = (p.x - __ldg(st.bbox + 3 * gid)) / vs;
-    const float iy = (p.y - __ldg(st.bbox + 3 * gid + 1)) / vs;
-    const float iz = (p.z - __ldg(st.bbox + 3 * gid + 2)) / vs;
+    const float ix = __fdiv_rn(__fsub_rn(p.x, __ldg(st.bbox + 3 * gid)), vs);
+    const float iy = __fdiv_rn(__fsub_rn(p.y, __ldg(st.bbox + 3 * gid + 1)), vs);
+    const float iz = __fdiv_rn(__fsub_rn(p.z, __ldg(st.bbox + 3 * gid + 2)), vs);
     const bool valid = ix >= 1.0f && ix <= (float)(GX - 2) && iy >= 1.0f
                     && iy <= (float)(GY - 2) && iz >= 1.0f && iz <= (float)(GZ - 2);
     if (!valid) {
@@ -232,29 +271,37 @@ __device__ __forceinline__ float grid_query_grad(const GridStack& st, int gid, V
     }
     // inside [1, hi] the reference's clip to [0, hi] changes nothing
     const int x0 = (int)ix, y0 = (int)iy, z0 = (int)iz;
-    const float fx = ix - (float)x0, fy = iy - (float)y0, fz = iz - (float)z0;
+    const float fx = __fsub_rn(ix, (float)x0), fy = __fsub_rn(iy, (float)y0);
+    const float fz = __fsub_rn(iz, (float)z0);
     const float* c = st.sdf + (size_t)gid * (GX * GY * GZ) + (size_t)x0 * (GY * GZ) + y0 * GZ + z0;
     const float c000 = __ldg(c), c001 = __ldg(c + 1);
     const float c010 = __ldg(c + GZ), c011 = __ldg(c + GZ + 1);
     const float c100 = __ldg(c + GY * GZ), c101 = __ldg(c + GY * GZ + 1);
     const float c110 = __ldg(c + GY * GZ + GZ), c111 = __ldg(c + GY * GZ + GZ + 1);
-    const float c00 = c000 * (1 - fz) + c001 * fz;
-    const float c01 = c010 * (1 - fz) + c011 * fz;
-    const float c10 = c100 * (1 - fz) + c101 * fz;
-    const float c11 = c110 * (1 - fz) + c111 * fz;
-    const float c0 = c00 * (1 - fy) + c01 * fy;
-    const float c1 = c10 * (1 - fy) + c11 * fy;
-    const float val = c0 * (1 - fx) + c1 * fx;
-    const float dx = (c1 - c0);
-    const float dy = ((c01 - c00) * (1 - fx) + (c11 - c10) * fx);
-    const float dz = (((c001 - c000) * (1 - fy) + (c011 - c010) * fy) * (1 - fx)
-                      + ((c101 - c100) * (1 - fy) + (c111 - c110) * fy) * fx);
-    *grad = v3(dx / vs, dy / vs, dz / vs);
+    const float gx = __fsub_rn(1.0f, fx), gy = __fsub_rn(1.0f, fy), gz = __fsub_rn(1.0f, fz);
+    // a * (1 - f) + b * f, each product and the sum rounded
+    auto lerp = [](float a, float b, float g, float f) {
+        return __fadd_rn(__fmul_rn(a, g), __fmul_rn(b, f));
+    };
+    const float c00 = lerp(c000, c001, gz, fz);
+    const float c01 = lerp(c010, c011, gz, fz);
+    const float c10 = lerp(c100, c101, gz, fz);
+    const float c11 = lerp(c110, c111, gz, fz);
+    const float c0 = lerp(c00, c01, gy, fy);
+    const float c1 = lerp(c10, c11, gy, fy);
+    const float val = lerp(c0, c1, gx, fx);
+    const float dx = __fsub_rn(c1, c0);
+    const float dy = lerp(__fsub_rn(c01, c00), __fsub_rn(c11, c10), gx, fx);
+    const float dz = lerp(lerp(__fsub_rn(c001, c000), __fsub_rn(c011, c010), gy, fy),
+                          lerp(__fsub_rn(c101, c100), __fsub_rn(c111, c110), gy, fy), gx, fx);
+    *grad = v3(__fdiv_rn(dx, vs), __fdiv_rn(dy, vs), __fdiv_rn(dz, vs));
     return val;
 }
 #endif
 
-__constant__ Spec c_spec;
+// The scene's Spec, uploaded once per scene; each block copies it to shared
+// memory.
+__device__ Spec g_spec;
 
 // Row offsets of the env-minor state buffer [FIS_NF, E].
 enum {
@@ -271,172 +318,430 @@ enum {
     FIS_NF = R_TGT + D
 };
 
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+constexpr int TRI = D * (D + 1) / 2;        // lower triangle of the robot's D x D
+constexpr int TRIO = DO * (DO + 1) / 2;     // and of the object's DO x DO
+constexpr int KG = FIS_K > 0 ? FIS_K : 1;   // grid arrays keep one slot in B1b
+// The scratch area, reused phase by phase: the link chains' local joint
+// transforms (7 (L + LO)); the mass matrix's COMs, inertias and Jacobian columns
+// (NL x 12 + NL x ND x 6, robot then object); the sphere Jacobians
+// (S x D x 3) beside first the pair depths (S x G + S x K), then N J (S x D
+// x 3); the two trees' Cholesky factors (2 x D x D).
+constexpr int SCRATCH = cmax(cmax(7 * (L + LO), 2 * D * D),
+                             cmax(cmax(L * 12 + L * D * 6, LO * 12 + LO * DO * 6),
+                                  S * D * 3 + cmax(S * G + S * KG, S * D * 3)));
+
+// One env's working set in shared memory (a warp's).  4-byte members only;
+// tests/test_torch_fused_warp.py reads the layout out of this source.
+struct Work {
+    float st[R_ANCP];         // state rows R_QPOS .. R_ORQ + 3
+    float tgt[D];
+    float lp[L][3];           // robot link poses
+    float lq[L][4];
+    float axw[D][3];          // per-dof world axes and anchors
+    float anw[D][3];
+    float rev[D];
+    float pris[D];
+    float M[TRI];
+    float Ac[TRI];
+    float tau[D];
+    float olp[LO][3];         // object link poses
+    float olq[LO][4];
+    float oaxw[DO][3];
+    float oanw[DO][3];
+    float orev[DO];
+    float opris[DO];
+    float Mo[TRIO];
+    float Ao[TRIO];
+    float tau_o[DO];
+    float bp[G][3];           // world box poses
+    float bq[G][4];
+    float gp[KG][3];          // world grid-geom frames (B1c)
+    float gq[KG][4];
+    int gact[G];              // the env's active boxes, ascending
+    int kact[KG];             // its active grid geoms, ascending
+    float cen[S][3];          // sphere centres
+    float F[S][3];            // per-sphere force and normal operator
+    float N[S][9];
+    int act[S];               // the sphere touches a partner this step
+    float scratch[SCRATCH];
+};
+
+constexpr int SPEC_WORDS = (int)(sizeof(Spec) / 4);
+constexpr int OBJ_WORDS = (int)(sizeof(ObjSpec) / 4);
+constexpr int WORK_WORDS = (int)(sizeof(Work) / 4);
+#if FIS_K > 0
+constexpr int GRID_WORDS = (int)(sizeof(GridSpec) / 4);
+#else
+constexpr int GRID_WORDS = 0;
+#endif
+constexpr int FIS_THREADS = 32 * FIS_WARPS;
+// dynamic shared memory of a block: [Spec][Work x W][ObjSpec x W][GridSpec x W]
+constexpr int SMEM_BYTES = 4 * (SPEC_WORDS + FIS_WARPS * (WORK_WORDS + OBJ_WORDS + GRID_WORDS));
+static_assert(SMEM_BYTES <= 232448, "a block's shared memory exceeds the H100's 227 KB");
+
+// Built with FIS_PHASES (scripts/prof_torch_fused_phases.py builds it; the
+// default build has none of it), lane 0 of each warp adds up the SM clock
+// cycles of each phase of the inner step (FIS_NPHASE of them, over all
+// n_steps) and writes them to a device buffer [E][FIS_NPHASE + 3]
+// (fis_set_phase_buffer), followed by the warp's SM and its start and end
+// on the card's global timer (ns): where one env's latency goes, and where
+// and when its warp ran.
+#define FIS_NPHASE 8
+#ifdef FIS_PHASES
+__device__ long long* g_phase_out;
+__device__ __forceinline__ long long fis_globaltimer() {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
+__device__ __forceinline__ long long fis_smid() {
+    unsigned id;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
+    return id;
+}
+#define PHASES_BEGIN \
+    const long long ph_start = fis_globaltimer(); \
+    long long ph_t0 = clock64(), ph_acc[FIS_NPHASE] = {};
+#define PHASE(i) { const long long ph_t = clock64(); ph_acc[i] += ph_t - ph_t0; ph_t0 = ph_t; }
+#define PHASES_END \
+    if (lane == 0) { \
+        long long* ph_out = g_phase_out + (size_t)e * (FIS_NPHASE + 3); \
+        for (int i = 0; i < FIS_NPHASE; ++i) ph_out[i] = ph_acc[i]; \
+        ph_out[FIS_NPHASE] = fis_smid(); \
+        ph_out[FIS_NPHASE + 1] = ph_start; \
+        ph_out[FIS_NPHASE + 2] = fis_globaltimer(); \
+    }
+#else
+#define PHASES_BEGIN
+#define PHASE(i)
+#define PHASES_END
+#endif
+
 __device__ __forceinline__ Q4 ld4(const float* p) { Q4 r = {p[0], p[1], p[2], p[3]}; return r; }
+__device__ __forceinline__ void st3(float* p, V3 v) { p[0] = v.x; p[1] = v.y; p[2] = v.z; }
+__device__ __forceinline__ void st4(float* p, Q4 q) { p[0] = q.x; p[1] = q.y; p[2] = q.z; p[3] = q.w; }
 
-// ---------------------------------------------------------------------------
-// Tree functions, shared by the robot (T = Spec, constant memory) and the
-// object (T = ObjSpec, global memory): both name their tree fields alike.
-// ---------------------------------------------------------------------------
-
-// Forward kinematics (kinematics.forward_kinematics): link poses, per-dof
-// world axes and anchors, revolute / prismatic indicators.
-template <int NL, int ND, class T>
-__device__ __forceinline__ void tree_fk(const T& t, const float* q, V3 root_p, Q4 root_q,
-                                        V3* lp, Q4* lq, V3* axis_w, V3* anchor_w,
-                                        float* rev, float* pris) {
-    lp[0] = quat_rotate(root_q, ld3(t.origin_pos[0])) + root_p;
-    lq[0] = quat_mul(root_q, ld4(t.origin_quat[0]));
-    for (int l = 1; l < NL; ++l) {
-        int pi = t.parent[l] > 0 ? t.parent[l] : 0;
-        V3 jp = quat_rotate(lq[pi], ld3(t.origin_pos[l])) + lp[pi];
-        Q4 jqw = quat_mul(lq[pi], ld4(t.origin_quat[l]));
-        float ql = q[t.dof_idx[l]];
-        float is_rev = t.joint_type[l] == 1 ? 1.0f : 0.0f;
-        float is_pris = t.joint_type[l] == 2 ? 1.0f : 0.0f;
-        V3 ax = ld3(t.axis[l]);
-        float half_ang = 0.5f * (ql * is_rev);
-        float sn = sinf(half_ang), cs = cosf(half_ang);
-        Q4 jq = {ax.x * sn, ax.y * sn, ax.z * sn, cs};
-        V3 jt = ax * (ql * is_pris);
-        lp[l] = jp + quat_rotate(jqw, jt);
-        lq[l] = quat_mul(jqw, jq);
-    }
-    for (int d = 0; d < ND; ++d) {
-        int c = t.dof_child[d];
-        axis_w[d] = quat_rotate(lq[c], ld3(t.axis[c]));
-        anchor_w[d] = lp[c];
-        int kind = t.joint_type[c];
-        rev[d] = (kind == 1 ? 1.0f : 0.0f) * t.dof_mask[d];
-        pris[d] = (kind == 2 ? 1.0f : 0.0f) * t.dof_mask[d];
-    }
+// (d, f) of entry i of a row-major lower triangle (i = d (d + 1) / 2 + f).
+__device__ __forceinline__ int tri_row(int i) {
+    int d = 0;
+    while ((d + 1) * (d + 2) / 2 <= i) ++d;
+    return d;
 }
 
 // Linear Jacobian column of dof d for a world point attached to a link with
 // ancestor flag a (kinematics._columns).
-__device__ __forceinline__ V3 jac_col(float a, int d, V3 point, const V3* axis_w,
-                                      const V3* anchor_w, const float* rev, const float* pris) {
-    V3 col = cross(axis_w[d], point - anchor_w[d]) * rev[d] + axis_w[d] * pris[d];
+__device__ __forceinline__ V3 jac_col(float a, int d, V3 point, const float (*axw)[3],
+                                      const float (*anw)[3], const float* rev,
+                                      const float* pris) {
+    const V3 ax = ld3(axw[d]);
+    V3 col = cross(ax, point - ld3(anw[d])) * rev[d] + ax * pris[d];
     return col * a;
 }
 
-// Joint-space inertia, lower triangle (dynamics.mass_matrix).
-template <int NL, int ND, class T>
-__device__ __forceinline__ void tree_mass(const T& t, const V3* lp, const Q4* lq,
-                                          const V3* axis_w, const V3* anchor_w,
-                                          const float* rev, const float* pris,
-                                          float (*M)[ND]) {
-    for (int d = 0; d < ND; ++d)
-        for (int f = 0; f <= d; ++f) M[d][f] = 0.0f;
-    for (int l = 0; l < NL; ++l) {
-        V3 com_w = lp[l] + quat_rotate(lq[l], ld3(t.com[l]));
-        float R[9], Iw[9], I[9];
-#pragma unroll
-        for (int k = 0; k < 9; ++k) I[k] = t.inertia[l][k];
-        quat_to_mat(lq[l], R);
-        rotate_inertia(R, I, Iw);
-        V3 jv[ND], jw[ND], Ijw[ND];
-        for (int d = 0; d < ND; ++d) {
-            float a = t.ancestor[l][d];
-            jv[d] = jac_col(a, d, com_w, axis_w, anchor_w, rev, pris);
-            jw[d] = axis_w[d] * (rev[d] * a);
-            Ijw[d] = matvec(Iw, jw[d]);
-        }
-        const float m = t.mass[l];
-        for (int d = 0; d < ND; ++d) {
-            if (t.ancestor[l][d] == 0.0f) continue;
-            for (int f = 0; f <= d; ++f) {
-                if (t.ancestor[l][f] == 0.0f) continue;
-                M[d][f] += m * dot(jv[d], jv[f]) + dot(jw[d], Ijw[f]);
-            }
+// ---------------------------------------------------------------------------
+// Tree phases, shared by the robot (T = Spec) and the object (T = ObjSpec):
+// both name their tree fields alike.  Every lane of the warp calls each one.
+// ---------------------------------------------------------------------------
+
+// Forward kinematics of both trees at once (kinematics.forward_kinematics):
+// link poses, per-dof world axes and anchors, revolute / prismatic
+// indicators; the robot on lanes 0..15, the object on lanes 16..31.  Lanes
+// over links form each joint's local rotation and translation (the sines
+// and cosines), lanes 0 and 16 compose the two chains side by side, lanes
+// over dofs read the world axes.  Uses 7 (L + LO) scratch floats.
+__device__ __forceinline__ void trees_fk(const Spec& sp, const ObjSpec& os, Work& w, int lane) {
+    static_assert(L <= 16 && LO <= 16 && D <= 16 && DO <= 16, "a half-warp per tree");
+    const bool obj = lane >= 16;
+    const int l = lane & 15, nl = obj ? LO : L, nd = obj ? DO : D;
+    float* jl = w.scratch + (obj ? 7 * L : 0);
+    const float* q = w.st + (obj ? R_OQ : R_QPOS);
+    const int* parent = obj ? os.parent : sp.parent;
+    const int* joint_type = obj ? os.joint_type : sp.joint_type;
+    const float (*axis)[3] = obj ? os.axis : sp.axis;
+    float (*lp)[3] = obj ? w.olp : w.lp;
+    float (*lq)[4] = obj ? w.olq : w.lq;
+    if (l >= 1 && l < nl) {                   // the joint of link l
+        const float ql = q[obj ? os.dof_idx[l] : sp.dof_idx[l]];
+        const float is_rev = joint_type[l] == 1 ? 1.0f : 0.0f;
+        const float is_pris = joint_type[l] == 2 ? 1.0f : 0.0f;
+        const V3 ax = ld3(axis[l]);
+        const float half_ang = __fmul_rn(0.5f, __fmul_rn(ql, is_rev));
+        const float sn = sinf(half_ang), cs = cosf(half_ang);
+        const V3 axs = mul_r(ax, sn);
+        const Q4 jq = {axs.x, axs.y, axs.z, cs};
+        st4(jl + 7 * l, jq);
+        st3(jl + 7 * l + 4, mul_r(ax, __fmul_rn(ql, is_pris)));
+    }
+    __syncwarp();
+    if (l == 0) {                             // the chains, root first
+        const float (*origin_pos)[3] = obj ? os.origin_pos : sp.origin_pos;
+        const float (*origin_quat)[4] = obj ? os.origin_quat : sp.origin_quat;
+        const float* root = w.st + (obj ? R_ORP : R_ROOTP);
+        const V3 root_p = ld3(root);
+        const Q4 root_q = ld4(root + 3);
+        V3 p;
+        Q4 r;
+        compose_t(root_p, root_q, ld3(origin_pos[0]), ld4(origin_quat[0]), &p, &r);
+        st3(lp[0], p);
+        st4(lq[0], r);
+#pragma unroll 1
+        for (int k = 1; k < nl; ++k) {
+            const int pi = parent[k] > 0 ? parent[k] : 0;
+            // a chain link's parent is the link before: kept in registers
+            const Q4 pq = pi == k - 1 ? r : ld4(lq[pi]);
+            const V3 pp = pi == k - 1 ? p : ld3(lp[pi]);
+            V3 jp;
+            Q4 jqw;
+            compose_t(pp, pq, ld3(origin_pos[k]), ld4(origin_quat[k]), &jp, &jqw);
+            p = add_r(jp, quat_rotate_t(jqw, ld3(jl + 7 * k + 4)));
+            r = quat_mul_t(jqw, ld4(jl + 7 * k));
+            st3(lp[k], p);
+            st4(lq[k], r);
         }
     }
-    for (int d = 0; d < ND; ++d)
-        M[d][d] += t.armature[d] * t.dof_mask[d] + (1.0f - t.dof_mask[d]);
+    __syncwarp();
+    if (l < nd) {
+        const int c = obj ? os.dof_child[l] : sp.dof_child[l];
+        const float mask = obj ? os.dof_mask[l] : sp.dof_mask[l];
+        st3(obj ? w.oaxw[l] : w.axw[l], quat_rotate_t(ld4(lq[c]), ld3(axis[c])));
+        st3(obj ? w.oanw[l] : w.anw[l], ld3(lp[c]));
+        const int kind = joint_type[c];
+        (obj ? w.orev : w.rev)[l] = (kind == 1 ? 1.0f : 0.0f) * mask;
+        (obj ? w.opris : w.pris)[l] = (kind == 2 ? 1.0f : 0.0f) * mask;
+    }
+    __syncwarp();
 }
 
-// Two-pass effort-clamped implicit PD step (dynamics.step_tree) of one tree:
-// (M + h D + h^2 K + Ac) qacc = tau_drive + tau_fric + tau_ext, then the
-// clipped velocity / position update with joint limits.  q, qv updated in
-// place; M, Ac lower triangles.
-template <int ND, class T>
-__device__ __forceinline__ void tree_step(const T& t, float (*M)[ND], float (*Ac)[ND],
-                                          const float* tau_ext, const float* tgt,
-                                          float* q, float* qv) {
-    const float h = c_spec.h;
-    float tau_d0[ND], tau_fric[ND], d_fric[ND], rhs[ND], qacc[ND];
-    float A[ND][ND];
-    for (int d = 0; d < ND; ++d) {
-        tau_d0[d] = t.kp[d] * (tgt[d] - q[d] - h * qv[d]) - t.kd[d] * qv[d];
-        tau_fric[d] = -t.friction[d] * clampf(qv[d] / c_spec.friction_veps, -1.0f, 1.0f);
-        d_fric[d] = t.friction[d] / c_spec.friction_veps
-                  * (fabsf(qv[d]) < c_spec.friction_veps ? 1.0f : 0.0f);
+// Joint-space inertia, row-major lower triangle Mt (dynamics.mass_matrix).
+// scratch: NL x 12 + NL x ND x 6 floats.
+template <int NL, int ND, class T>
+__device__ __forceinline__ void tree_mass(const T& t, const float (*lp)[3], const float (*lq)[4],
+                                          const float (*axw)[3], const float (*anw)[3],
+                                          const float* rev, const float* pris, float* Mt,
+                                          float* scratch, int lane) {
+    float* com_w = scratch;                   // [NL][3]
+    float* Iw = com_w + NL * 3;               // [NL][9]
+    float* jv = Iw + NL * 9;                  // [NL][ND][3]
+    float* Ijw = jv + NL * ND * 3;            // [NL][ND][3]
+    if (lane < NL) {
+        const int l = lane;
+        const Q4 q = ld4(lq[l]);
+        st3(com_w + 3 * l, ld3(lp[l]) + quat_rotate(q, ld3(t.com[l])));
+        float R[9], I[9], Il[9];
+#pragma unroll
+        for (int k = 0; k < 9; ++k) I[k] = t.inertia[l][k];
+        quat_to_mat(q, R);
+        rotate_inertia(R, I, Il);
+#pragma unroll
+        for (int k = 0; k < 9; ++k) Iw[9 * l + k] = Il[k];
     }
+    __syncwarp();
+    for (int i = lane; i < NL * ND; i += 32) {
+        const int l = i / ND, d = i - l * ND;
+        const float a = t.ancestor[l][d];
+        st3(jv + 3 * i, jac_col(a, d, ld3(com_w + 3 * l), axw, anw, rev, pris));
+        st3(Ijw + 3 * i, matvec(Iw + 9 * l, ld3(axw[d]) * (rev[d] * a)));
+    }
+    __syncwarp();
+    // lane t sums entries t, t + 32, ... side by side, each over the links
+    // in link order
+    constexpr int NT = ND * (ND + 1) / 2, PER = (NT + 31) / 32;
+    int dd[PER], ff[PER];
+    float m[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+        const int i = lane + 32 * k < NT ? lane + 32 * k : NT - 1;
+        dd[k] = tri_row(i);
+        ff[k] = i - dd[k] * (dd[k] + 1) / 2;
+        m[k] = 0.0f;
+    }
+    for (int l = 0; l < NL; ++l) {
+        const float ml = t.mass[l];
+#pragma unroll
+        for (int k = 0; k < PER; ++k) {
+            const int d = dd[k], f = ff[k];
+            const float ad = t.ancestor[l][d];
+            const V3 jwd = ld3(axw[d]) * (rev[d] * ad);
+            const float term = ml * dot(ld3(jv + 3 * (l * ND + d)), ld3(jv + 3 * (l * ND + f)))
+                             + dot(jwd, ld3(Ijw + 3 * (l * ND + f)));
+            // a link off the entry's dofs adds an exact +0 (the sum starts
+            // at +0 and never turns -0): the serial sum's bits, no branch
+            m[k] += ad != 0.0f && t.ancestor[l][f] != 0.0f ? term : 0.0f;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+        const int d = dd[k];
+        if (d == ff[k]) m[k] += t.armature[d] * t.dof_mask[d] + (1.0f - t.dof_mask[d]);
+        if (lane + 32 * k < NT) Mt[lane + 32 * k] = m[k];
+    }
+    __syncwarp();
+}
+
+// Row d of A = M + diag + Ac (lower triangles Mt, Act) into registers,
+// zeros past the diagonal; a padding lane (real false) takes row ri of the
+// identity instead.
+template <int NR>
+__device__ __forceinline__ void system_row(float (&row)[NR], int ri, const float* Mt,
+                                           const float* Act, int d, float diag, bool real) {
+    const int base = d * (d + 1) / 2;
+#pragma unroll
+    for (int f = 0; f < NR; ++f) {
+        const int i = base + (f < d ? f : d);
+        const float a = f < d ? Mt[i] + Act[i] : (f == d ? Mt[i] + diag + Act[i] : 0.0f);
+        row[f] = real ? a : (f == ri ? 1.0f : 0.0f);
+    }
+}
+
+// Two-pass effort-clamped implicit PD step (dynamics.step_tree) of both
+// trees at once, a lane per dof: (M + h D + h^2 K + Ac) qacc = tau_drive +
+// tau_fric + tau_ext, then the clipped velocity / position update with
+// joint limits.  The robot's D rows lie on lanes 0..15, the object's DO rows
+// on lanes 16..31, padded to D rows with identity rows and a zero right-hand
+// side: rows and columns after the real ones change none of the 4 x 4
+// solve's operations (their factor entries and solutions are exact zeros),
+// so the object gets what a solve of its own would give.  The object is
+// undriven: its target is its own qpos.  Updates q, qv and the object's in
+// place; Lsh: 2 x D x D scratch floats (the two systems).
+__device__ __forceinline__ void tree_steps(const Spec& sp, const ObjSpec& os, Work& w, float* Lsh,
+                                           int lane) {
+    static_assert(D <= 16 && DO <= D, "a half-warp per tree, the object padded to D rows");
+    const float h = sp.h;
+    const bool obj = lane >= 16;
+    const int hl = lane & 15;
+    const int nd = obj ? DO : D;
+    const bool real = hl < nd;
+    const int d = real ? hl : nd - 1;         // padding lanes read a real dof, then drop it
+    float* q = w.st + (obj ? R_OQ : R_QPOS);
+    float* qv = w.st + (obj ? R_OV : R_QVEL);
+    const float* Mt = obj ? w.Mo : w.M;
+    const float* Act = obj ? w.Ao : w.Ac;
+    const float qd = q[d], qvd = qv[d];
+    const float tg = obj ? q[d] : w.tgt[d];
+    const float te = obj ? w.tau_o[d] : w.tau[d];
+#define DOF(field) (obj ? os.field[d] : sp.field[d])
+    const float kp = DOF(kp), kd = DOF(kd), mask = DOF(dof_mask), effort = DOF(effort);
+    const float fric = DOF(friction), damping = DOF(damping), vel_limit = DOF(vel_limit);
+    const float lower = DOF(lower), upper = DOF(upper);
+#undef DOF
+    const float Mdd = Mt[d * (d + 1) / 2 + d];
+    const float tau_d0 = kp * (tg - qd - h * qvd) - kd * qvd;
+    const float tau_fric = -fric * clampf(div_pos(qvd, sp.friction_veps), -1.0f, 1.0f);
+    const float d_fric = div_pos(fric, sp.friction_veps)
+                       * (fabsf(qvd) < sp.friction_veps ? 1.0f : 0.0f);
+    float* Lh = Lsh + (obj ? D * D : 0);
+    float row[D];
     // pass 1: fully implicit, no effort limit
-    for (int d = 0; d < ND; ++d) {
-        for (int f = 0; f < d; ++f) A[d][f] = M[d][f] + Ac[d][f];
-        float diag = h * (t.kd[d] + 0.0f + t.damping[d] + d_fric[d]) + (h * h) * t.kp[d];
-        A[d][d] = M[d][d] + diag * t.dof_mask[d] + Ac[d][d];
-        rhs[d] = (tau_d0[d] + tau_fric[d] + tau_ext[d]) * t.dof_mask[d];
-    }
-    spd_solve<ND>(A, rhs, qacc);
+    system_row<D>(row, hl, Mt, Act, d, (h * (kd + 0.0f + damping + d_fric) + (h * h) * kp) * mask,
+                  real);
+    float qacc = spd_solve_warp<D>(row, real ? (tau_d0 + tau_fric + te) * mask : 0.0f, Lh, hl,
+                                   lane & 16);
     // pass 2: saturated dofs become effort-limited velocity servos
     {
-        float unsat[ND], b_imp[ND];
-        for (int d = 0; d < ND; ++d) {
-            float qa = qacc[d] * t.dof_mask[d];
-            float tau_imp = tau_d0[d] - (h * h * t.kp[d] + h * t.kd[d]) * qa;
-            float sat = fabsf(tau_imp) > t.effort[d] ? 1.0f : 0.0f;
-            unsat[d] = 1.0f - sat;
-            float a_max = t.effort[d] / fmaxf(M[d][d], 1e-9f);
-            float err = tgt[d] - q[d];
-            float aerr = fabsf(err);
-            float sgn = err > 0.0f ? 1.0f : (err < 0.0f ? -1.0f : 0.0f);
-            float v_opt = sgn * fminf(t.vel_limit[d],
-                                      fminf(aerr / h, sqrtf(2.0f * c_spec.brake_beta * a_max * aerr)));
-            float dv = v_opt - qv[d];
-            b_imp[d] = sat * t.effort[d] / fmaxf(fabsf(dv), c_spec.sat_veps);
-            float tau_drive = b_imp[d] * dv + unsat[d] * tau_d0[d];
-            rhs[d] = (tau_drive + tau_fric[d] + tau_ext[d]) * t.dof_mask[d];
-        }
-        for (int d = 0; d < ND; ++d) {
-            for (int f = 0; f < d; ++f) A[d][f] = M[d][f] + Ac[d][f];
-            float diag = h * (t.kd[d] * unsat[d] + b_imp[d] + t.damping[d] + d_fric[d])
-                       + (h * h) * (t.kp[d] * unsat[d]);
-            A[d][d] = M[d][d] + diag * t.dof_mask[d] + Ac[d][d];
-        }
-        spd_solve<ND>(A, rhs, qacc);
+        const float qa = qacc * mask;
+        const float tau_imp = tau_d0 - (h * h * kp + h * kd) * qa;
+        const float sat = fabsf(tau_imp) > effort ? 1.0f : 0.0f;
+        const float unsat = 1.0f - sat;
+        const float a_max = div_pos(effort, fmaxf(Mdd, 1e-9f));
+        const float err = tg - qd;
+        const float aerr = fabsf(err);
+        const float sgn = err > 0.0f ? 1.0f : (err < 0.0f ? -1.0f : 0.0f);
+        const float v_opt = sgn * fminf(vel_limit, fminf(div_pos(aerr, h),
+                                                         sqrt_nz(2.0f * sp.brake_beta * a_max * aerr)));
+        const float dv = v_opt - qvd;
+        const float b_imp = div_pos(sat * effort, fmaxf(fabsf(dv), sp.sat_veps));
+        const float tau_drive = b_imp * dv + unsat * tau_d0;
+        const float diag = h * (kd * unsat + b_imp + damping + d_fric) + (h * h) * (kp * unsat);
+        system_row<D>(row, hl, Mt, Act, d, diag * mask, real);
+        qacc = spd_solve_warp<D>(row, real ? (tau_drive + tau_fric + te) * mask : 0.0f, Lh, hl,
+                                 lane & 16);
     }
-    float vel_new[ND];
-    for (int d = 0; d < ND; ++d) {
-        float qa = qacc[d] * t.dof_mask[d];
-        float v_new = clampf(qv[d] + h * qa, -t.vel_limit[d], t.vel_limit[d]);
-        float q_new = q[d] + h * v_new;
-        bool at_lo = (q_new < t.lower[d]) && (v_new < 0.0f);
-        bool at_hi = (q_new > t.upper[d]) && (v_new > 0.0f);
-        vel_new[d] = ((at_lo || at_hi) ? 0.0f : v_new) * t.dof_mask[d];
-        q[d] = clampf(q_new, t.lower[d], t.upper[d]) * t.dof_mask[d];
+    const float qa = qacc * mask;
+    const float v_new = clampf(qvd + h * qa, -vel_limit, vel_limit);
+    const float q_new = qd + h * v_new;
+    const bool at_lo = (q_new < lower) && (v_new < 0.0f);
+    const bool at_hi = (q_new > upper) && (v_new > 0.0f);
+    const float vel_new = ((at_lo || at_hi) ? 0.0f : v_new) * mask;
+    const float pos_new = clampf(q_new, lower, upper) * mask;
+    __syncwarp();
+    if (real) {
+        q[d] = pos_new;
+        qv[d] = vel_new;
     }
-    for (int d = 0; d < ND; ++d) qv[d] = vel_new[d];
+    __syncwarp();
 }
 
 // Linear and angular Jacobian columns of the object at the centre bp of a
-// box on link li (engine: frame Jacobian at the link origin, shifted to the
-// box centre by Jw x r).
-__device__ __forceinline__ void box_jacobian(const ObjSpec& os, int li, V3 bp, const V3* olp,
-                                             const V3* oaxis_w, const V3* oanchor_w,
-                                             const float* orev, const float* opris,
+// geom on link li (engine: frame Jacobian at the link origin, shifted to the
+// geom centre by Jw x r).
+__device__ __forceinline__ void obj_jacobian(const ObjSpec& os, const Work& w, int li, V3 bp,
                                              V3* jv, V3* jw) {
-    const V3 r_box = bp - olp[li];
+    const V3 olp = ld3(w.olp[li]);
+    const V3 r_box = bp - olp;
 #pragma unroll
     for (int d = 0; d < DO; ++d) {
-        float a = os.ancestor[li][d];
-        V3 jv_link = jac_col(a, d, olp[li], oaxis_w, oanchor_w, orev, opris);
-        jw[d] = oaxis_w[d] * (orev[d] * a);
+        const float a = os.ancestor[li][d];
+        const V3 jv_link = jac_col(a, d, olp, w.oaxw, w.oanw, w.orev, w.opris);
+        jw[d] = ld3(w.oaxw[d]) * (w.orev[d] * a);
         jv[d] = jv_link + cross(jw[d], r_box);
     }
 }
 
-__global__ void __launch_bounds__(FIS_BLOCK)
+// One touching (sphere, object geom) pair of pass B: its penalty force on
+// the sphere, its part of the sphere's normal operator N, and the reaction
+// wrench (-f, -(rel x f)) about the geom centre through the geom Jacobian
+// into the sphere's share of the object's tau and A_c.
+__device__ __forceinline__ V3 obj_pair_force(const Spec& sp, const ObjSpec& os, const Work& w,
+                                             int li, V3 gpos, V3 rel, V3 n, float depth, V3 v,
+                                             float mu, float n_act, float* N, float* to,
+                                             float* ao, V3* vo_out, float* fn_out) {
+    V3 jv[DO], jw[DO];
+    obj_jacobian(os, w, li, gpos, jv, jw);
+    V3 vc = v3(0.0f, 0.0f, 0.0f), wc = v3(0.0f, 0.0f, 0.0f);
+    const float* ov = w.st + R_OV;
+#pragma unroll
+    for (int d = 0; d < DO; ++d) {
+        vc = vc + jv[d] * ov[d];
+        wc = wc + jw[d] * ov[d];
+    }
+    const V3 vo = vc + cross(wc, rel);
+    const V3 f = penalty_force(depth, n, v - vo, mu, 0.3f, sp.cd_obj, n_act, 0.0f, sp.h, sp.kn,
+                               sp.kt, sp.max_depen, fn_out);
+    const float nn[3] = {n.x, n.y, n.z};
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int b = 0; b < 3; ++b) N[a * 3 + b] += sp.coef_obj * nn[a] * nn[b];
+    const V3 tf = cross(rel, f);
+    float jn[DO];
+#pragma unroll
+    for (int d = 0; d < DO; ++d) {
+        to[d] -= dot(jv[d], f) + dot(jw[d], tf);
+        jn[d] = dot(jv[d], n);
+    }
+#pragma unroll
+    for (int d = 0; d < DO; ++d)
+#pragma unroll
+        for (int f2 = 0; f2 <= d; ++f2) ao[d * (d + 1) / 2 + f2] += sp.coef_obj * jn[d] * jn[f2];
+    *vo_out = vo;
+    return f;
+}
+
+// The friction reaction -ft at c on the object through the Jacobian of the
+// selected geom (on link li, centre gpos): no velocity cap, the cabinet is
+// an articulation, not a free body.
+__device__ __forceinline__ void obj_friction_reaction(const ObjSpec& os, const Work& w, int li,
+                                                      V3 gpos, V3 c, V3 ft, float* to) {
+    V3 jv[DO], jw[DO];
+    obj_jacobian(os, w, li, gpos, jv, jw);
+    const V3 tf = cross(c - gpos, ft);
+#pragma unroll
+    for (int d = 0; d < DO; ++d) to[d] -= dot(jv[d], ft) + dot(jw[d], tf);
+}
+
+__global__ void __launch_bounds__(FIS_THREADS, 16 / FIS_WARPS)
 fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict__ anc_b_in,
                             float* __restrict__ out, int* __restrict__ anc_b_out,
                             const ObjSpec* __restrict__ obj_table,
@@ -444,426 +749,432 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
                             const GridSpec* __restrict__ grid_table, GridStack stack,
 #endif
                             const int* __restrict__ obj_id, int E, int n_steps) {
-    const int e = blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= E) return;
-    const Spec& sp = c_spec;
-    const ObjSpec& os = obj_table[obj_id[e]];
+    extern __shared__ float smem[];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int e = blockIdx.x * FIS_WARPS + warp;
+    Spec& sp = *reinterpret_cast<Spec*>(smem);
+    Work& w = reinterpret_cast<Work*>(smem + SPEC_WORDS)[warp];
+    ObjSpec& os = reinterpret_cast<ObjSpec*>(smem + SPEC_WORDS + FIS_WARPS * WORK_WORDS)[warp];
 #if FIS_K > 0
-    const GridSpec& gr = grid_table[obj_id[e]];
+    GridSpec& gr = reinterpret_cast<GridSpec*>(
+        smem + SPEC_WORDS + FIS_WARPS * (WORK_WORDS + OBJ_WORDS))[warp];
     const int KOFF = 2 + G;          // partner ids of the grid geoms start here
 #endif
-    const float h = sp.h;
-#define IN(row) in[(size_t)(row) * E + e]
-#define OUT(row) out[(size_t)(row) * E + e]
+    // ---- the block's Spec, each env's cabinet records ----
+    for (int i = threadIdx.x; i < SPEC_WORDS; i += FIS_THREADS)
+        smem[i] = reinterpret_cast<const float*>(&g_spec)[i];
+    if (e < E) {
+        const int oid = obj_id[e];
+        const float* src = reinterpret_cast<const float*>(obj_table + oid);
+        float* dst = reinterpret_cast<float*>(&os);
+        for (int i = lane; i < OBJ_WORDS; i += 32) dst[i] = src[i];
+#if FIS_K > 0
+        const float* gsrc = reinterpret_cast<const float*>(grid_table + oid);
+        float* gdst = reinterpret_cast<float*>(&gr);
+        for (int i = lane; i < GRID_WORDS; i += 32) gdst[i] = gsrc[i];
+#endif
+    }
+    __syncthreads();
+    if (e >= E) return;
 
     // ---- load state ----
-    float q[D], qv[D], tgt[D];
-    for (int d = 0; d < D; ++d) {
-        q[d] = IN(R_QPOS + d);
-        qv[d] = IN(R_QVEL + d);
-        tgt[d] = IN(R_TGT + d);
+    for (int r = lane; r < R_ANCP; r += 32) w.st[r] = in[(size_t)r * E + e];
+    for (int d = lane; d < D; d += 32) w.tgt[d] = in[(size_t)(R_TGT + d) * E + e];
+    const float* qv = w.st + R_QVEL;
+    // lane s < S holds sphere s's anchor
+    V3 anc_p = v3(0.0f, 0.0f, 0.0f);
+    int anc_b = -1;
+    if (lane < S) {
+        const int r = R_ANCP + 3 * lane;
+        anc_p = v3(in[(size_t)r * E + e], in[(size_t)(r + 1) * E + e], in[(size_t)(r + 2) * E + e]);
+        anc_b = anc_b_in[(size_t)lane * E + e];
     }
-    const V3 root_p = v3(IN(R_ROOTP), IN(R_ROOTP + 1), IN(R_ROOTP + 2));
-    const Q4 root_q = {IN(R_ROOTQ), IN(R_ROOTQ + 1), IN(R_ROOTQ + 2), IN(R_ROOTQ + 3)};
-    float oq[DO], ov[DO];
-    for (int d = 0; d < DO; ++d) {
-        oq[d] = IN(R_OQ + d);
-        ov[d] = IN(R_OV + d);
-    }
-    const V3 oroot_p = v3(IN(R_ORP), IN(R_ORP + 1), IN(R_ORP + 2));
-    const Q4 oroot_q = {IN(R_ORQ), IN(R_ORQ + 1), IN(R_ORQ + 2), IN(R_ORQ + 3)};
-    V3 anc_p[S];
-    int anc_b[S];
-    for (int s = 0; s < S; ++s) {
-        anc_p[s] = v3(IN(R_ANCP + 3 * s), IN(R_ANCP + 3 * s + 1), IN(R_ANCP + 3 * s + 2));
-        anc_b[s] = anc_b_in[(size_t)s * E + e];
-    }
-
-    for (int step = 0; step < n_steps; ++step) {
-        // ---- robot: kinematics and inertia ----
-        V3 lp[L], axis_w[D], anchor_w[D];
-        Q4 lq[L];
-        float rev[D], pris[D];
-        tree_fk<L, D>(sp, q, root_p, root_q, lp, lq, axis_w, anchor_w, rev, pris);
-        float M[D][D];
-        tree_mass<L, D>(sp, lp, lq, axis_w, anchor_w, rev, pris, M);
-
-        // ---- object: kinematics, inertia, world box poses ----
-        V3 olp[LO], oaxis_w[DO], oanchor_w[DO];
-        Q4 olq[LO];
-        float orev[DO], opris[DO];
-        tree_fk<LO, DO>(os, oq, oroot_p, oroot_q, olp, olq, oaxis_w, oanchor_w, orev, opris);
-        float Mo[DO][DO];
-        tree_mass<LO, DO>(os, olp, olq, oaxis_w, oanchor_w, orev, opris, Mo);
-        V3 bp[G];
-        Q4 bq[G];
-        for (int g = 0; g < G; ++g) {
-            const int li = os.b_link[g];
-            bp[g] = quat_rotate(olq[li], ld3(os.b_pos[g])) + olp[li];
-            bq[g] = quat_mul(olq[li], ld4(os.b_quat[g]));
-        }
+    // the active boxes (and grid geoms) of the env, ascending
+    const unsigned bmask = __ballot_sync(FIS_FULL_MASK, lane < G && os.b_mask[lane] != 0.0f);
+    const int nb = __popc(bmask);
+    if (lane < G && ((bmask >> lane) & 1u)) w.gact[__popc(bmask & ((1u << lane) - 1u))] = lane;
 #if FIS_K > 0
-        V3 gp[K];
-        Q4 gq[K];
-        for (int k = 0; k < K; ++k) {
-            const int li = gr.g_link[k];
-            gp[k] = quat_rotate(olq[li], ld3(gr.g_pos[k])) + olp[li];
-            gq[k] = quat_mul(olq[li], ld4(gr.g_quat[k]));
-        }
+    const unsigned gkmask = __ballot_sync(FIS_FULL_MASK, lane < K && gr.g_mask[lane] != 0.0f);
+    const int nk = __popc(gkmask);
+    if (lane < K && ((gkmask >> lane) & 1u)) w.kact[__popc(gkmask & ((1u << lane) - 1u))] = lane;
+#endif
+    __syncwarp();
+
+    float* jp = w.scratch;                    // [S][D][3] sphere Jacobians
+    float* dsg = jp + S * D * 3;              // [S][G] masked (sphere, box) depths
+    float* Njp = dsg;                         // [S][D][3] N J, after pass B
+#if FIS_K > 0
+    float* dsk = dsg + S * G;                 // [S][K] masked (sphere, grid) depths
 #endif
 
-        // ---- robot spheres: world centres and velocities ----
-        V3 cen[S], vs[S];
-        float n_act_g = 0.0f;
-        for (int s = 0; s < S; ++s) {
-            int li = sp.sph_link[s];
-            V3 c = lp[li] + quat_rotate(lq[li], ld3(sp.sph_off[s]));
-            V3 v = v3(0.0f, 0.0f, 0.0f);
-            for (int d = 0; d < D; ++d) {
-                float a = sp.ancestor[li][d];
-                if (a == 0.0f) continue;
-                v = v + jac_col(a, d, c, axis_w, anchor_w, rev, pris) * qv[d];
-            }
-            cen[s] = c;
-            vs[s] = v;
-            n_act_g += (c.z - sp.sph_radius[s]) < 0.0f ? 1.0f : 0.0f;
-        }
-        n_act_g = fmaxf(1.0f, n_act_g);
+    PHASES_BEGIN
+    for (int step = 0; step < n_steps; ++step) {
+        // ---- both trees: kinematics and inertia ----
+        trees_fk(sp, os, w, lane);
+        PHASE(0)
+        tree_mass<L, D>(sp, w.lp, w.lq, w.axw, w.anw, w.rev, w.pris, w.M, w.scratch, lane);
+        PHASE(1)
+        tree_mass<LO, DO>(os, w.olp, w.olq, w.oaxw, w.oanw, w.orev, w.opris, w.Mo, w.scratch,
+                          lane);
+        PHASE(2)
 
-        // ---- narrowphase, pass A: touching sphere-box pairs, the budget
-        // count over all of them, and the best (first deepest) box per sphere
-        unsigned tmask[S];
-        float best_bd[S];
-        int best_g[S];
-        for (int s = 0; s < S; ++s) {
-            tmask[s] = 0u;
-            best_bd[s] = 1e9f;
-            best_g[s] = -1;
+        // ---- world box (and grid) poses; sphere centres, ground budget ----
+        if (lane < G) {
+            const int li = os.b_link[lane];
+            V3 bp;
+            Q4 bq;
+            compose_t(ld3(w.olp[li]), ld4(w.olq[li]), ld3(os.b_pos[lane]), ld4(os.b_quat[lane]),
+                      &bp, &bq);
+            st3(w.bp[lane], bp);
+            st4(w.bq[lane], bq);
         }
-        float n_act_o = 0.0f;
-        for (int g = 0; g < G; ++g) {
-            if (os.b_mask[g] == 0.0f) continue;       // inactive geom: never touches
-            const V3 half = ld3(os.b_half[g]);
-            for (int s = 0; s < S; ++s) {
+#if FIS_K > 0
+        if (lane < K) {
+            const int li = gr.g_link[lane];
+            V3 gp;
+            Q4 gq;
+            compose_t(ld3(w.olp[li]), ld4(w.olq[li]), ld3(gr.g_pos[lane]), ld4(gr.g_quat[lane]),
+                      &gp, &gq);
+            st3(w.gp[lane], gp);
+            st4(w.gq[lane], gq);
+        }
+#endif
+        bool on_ground = false;
+        if (lane < S) {
+            const int li = sp.sph_link[lane];
+            const V3 c = add_r(ld3(w.lp[li]), quat_rotate_t(ld4(w.lq[li]), ld3(sp.sph_off[lane])));
+            st3(w.cen[lane], c);
+            on_ground = (c.z - sp.sph_radius[lane]) < 0.0f;
+        }
+        const float n_act_g = fmaxf(1.0f, (float)warp_count(on_ground));
+        __syncwarp();
+        PHASE(3)
+
+        // ---- sphere Jacobians, lanes over (sphere, dof) ----
+        for (int i = lane; i < S * D; i += 32) {
+            const int s = i / D, d = i - s * D;
+            st3(jp + 3 * i, jac_col(sp.ancestor[sp.sph_link[s]][d], d, ld3(w.cen[s]), w.axw,
+                                    w.anw, w.rev, w.pris));
+        }
+
+        // ---- narrowphase, pass A: lanes over (sphere, active box) pairs;
+        // the budget counts the touching pairs of the whole env
+        int n_touch = 0;
+        for (int base = 0; base < S * nb; base += 32) {
+            const int p = base + lane;
+            bool touch = false;
+            if (p < S * nb) {
+                const int s = p / nb, j = p - s * nb, g = w.gact[j];
                 V3 n_local;
-                float depth = box_sdf(quat_rotate_inv(bq[g], cen[s] - bp[g]), half, &n_local)
-                            - sp.sph_radius[s];
-                if (depth < 0.0f) {
-                    tmask[s] |= 1u << g;
-                    n_act_o += 1.0f;
-                    if (depth < best_bd[s]) {
-                        best_bd[s] = depth;
-                        best_g[s] = g;
-                    }
-                }
+                const float depth = __fsub_rn(
+                    box_sdf_t(quat_rotate_inv_t(ld4(w.bq[g]), sub_r(ld3(w.cen[s]), ld3(w.bp[g]))),
+                              ld3(os.b_half[g]), &n_local), sp.sph_radius[s]);
+                touch = depth < 0.0f;
+                dsg[s * G + j] = touch ? depth : 1e9f;
             }
+            n_touch += warp_count(touch);
         }
-        n_act_o = fmaxf(1.0f, n_act_o);
+        const float n_act_o = fmaxf(1.0f, (float)n_touch);
 #if FIS_K > 0
         // the same for the grid geoms: touching = depth < 0 and an active
-        // pair (unmasked geom, gradient norm > 1e-6); a budget of their own
-        unsigned kmask[S];
-        float best_kd[S];
-        int best_k[S];
-        for (int s = 0; s < S; ++s) {
-            kmask[s] = 0u;
-            best_kd[s] = 1e9f;
-            best_k[s] = -1;
-        }
-        float n_act_k = 0.0f;
-        for (int k = 0; k < K; ++k) {
-            if (gr.g_mask[k] == 0.0f) continue;
-            for (int s = 0; s < S; ++s) {
+        // pair (gradient norm > 1e-6); a budget of their own
+        n_touch = 0;
+        for (int base = 0; base < S * nk; base += 32) {
+            const int p = base + lane;
+            bool touch = false;
+            if (p < S * nk) {
+                const int s = p / nk, j = p - s * nk, k = w.kact[j];
                 V3 grad;
-                const float val = grid_query_grad(stack, gr.g_gid[k],
-                                                  quat_rotate_inv(gq[k], cen[s] - gp[k]), &grad);
-                const float depth = val - sp.sph_radius[s];
-                if (norm(grad) > 1e-6f && depth < 0.0f) {
-                    kmask[s] |= 1u << k;
-                    n_act_k += 1.0f;
-                    if (depth < best_kd[s]) {
-                        best_kd[s] = depth;
-                        best_k[s] = k;
+                const float val = grid_query_grad(
+                    stack, gr.g_gid[k],
+                    quat_rotate_inv_t(ld4(w.gq[k]), sub_r(ld3(w.cen[s]), ld3(w.gp[k]))), &grad);
+                const float depth = __fsub_rn(val, sp.sph_radius[s]);
+                touch = norm_t(grad) > 1e-6f && depth < 0.0f;
+                dsk[s * K + j] = touch ? depth : 1e9f;
+            }
+            n_touch += warp_count(touch);
+        }
+        const float n_act_k = fmaxf(1.0f, (float)n_touch);
+#endif
+        __syncwarp();
+        PHASE(4)
+
+        // ---- pass B, a lane per sphere: partner, forces, anchor, and the
+        // sphere's part of the object's reaction
+        float to[DO], ao[TRIO];
+#pragma unroll
+        for (int d = 0; d < DO; ++d) to[d] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < TRIO; ++i) ao[i] = 0.0f;
+        if (lane < S) {
+            const int s = lane;
+            const int li = sp.sph_link[s];
+            const V3 c = ld3(w.cen[s]);
+            V3 v = v3(0.0f, 0.0f, 0.0f);
+            for (int d = 0; d < D; ++d) {
+                if (sp.ancestor[li][d] == 0.0f) continue;
+                v = v + ld3(jp + 3 * (s * D + d)) * qv[d];
+            }
+            const float r = sp.sph_radius[s];
+            const float dg = c.z - r;
+            // the touching boxes and the best (first deepest) one, in box order
+            unsigned tmask = 0u;
+            float best_bd = 1e9f;
+            int best_g = -1;
+            for (int j = 0; j < nb; ++j) {
+                const float dd = dsg[s * G + j];
+                if (dd < 0.0f) {
+                    const int g = w.gact[j];
+                    tmask |= 1u << g;
+                    if (dd < best_bd) {
+                        best_bd = dd;
+                        best_g = g;
                     }
                 }
             }
-        }
-        n_act_k = fmaxf(1.0f, n_act_k);
+#if FIS_K > 0
+            unsigned kmask = 0u;
+            float best_kd = 1e9f;
+            int best_k = -1;
+            for (int j = 0; j < nk; ++j) {
+                const float dd = dsk[s * K + j];
+                if (dd < 0.0f) {
+                    const int k = w.kact[j];
+                    kmask |= 1u << k;
+                    if (dd < best_kd) {
+                        best_kd = dd;
+                        best_k = k;
+                    }
+                }
+            }
 #endif
-
-        // ---- pass B: forces, anchors, J^T F and J^T N J (robot), box
-        // wrenches and J^T N J at the box centres (object) ----
-        float tau[D], Ac[D][D], tau_o[DO], Ao[DO][DO];
-        for (int d = 0; d < D; ++d) {
-            tau[d] = 0.0f;
-            for (int f = 0; f <= d; ++f) Ac[d][f] = 0.0f;
-        }
-        for (int d = 0; d < DO; ++d) {
-            tau_o[d] = 0.0f;
-            for (int f = 0; f <= d; ++f) Ao[d][f] = 0.0f;
-        }
-        for (int s = 0; s < S; ++s) {
-            const V3 c = cen[s];
-            const V3 v = vs[s];
-            const float r = sp.sph_radius[s];
-            const float dg = c.z - r;
-            // partner choice in the order ground (0), boxes (2 + g): a later
-            // partner wins only with a strictly smaller depth
+            // partner choice in the order ground (0), boxes (2 + g), grids
+            // (2 + G + k): a later partner wins only with a strictly smaller
+            // depth
             int id = -1;
             float bd = 1e9f;
             if (dg < 0.0f && dg < bd) { id = 0; bd = dg; }
-            if (best_g[s] >= 0 && best_bd[s] < bd) { id = 2 + best_g[s]; bd = best_bd[s]; }
+            if (best_g >= 0 && best_bd < bd) { id = 2 + best_g; bd = best_bd; }
 #if FIS_K > 0
-            if (best_k[s] >= 0 && best_kd[s] < bd) { id = KOFF + best_k[s]; bd = best_kd[s]; }
+            if (best_k >= 0 && best_kd < bd) { id = KOFF + best_k; bd = best_kd; }
 #endif
-            if (id < 0) {          // touches nothing: no force, anchor released
-                anc_b[s] = -1;
-                continue;
-            }
             V3 F = v3(0.0f, 0.0f, 0.0f);
             float N[9];
 #pragma unroll
             for (int k = 0; k < 9; ++k) N[k] = 0.0f;
-            float fn_g = 0.0f;
-            const float mu_g = 0.5f * (sp.sph_mu[s] + sp.ground_mu);
-            if (dg < 0.0f) {
-                F = F + penalty_force(dg, v3(0.0f, 0.0f, 1.0f), v, mu_g, 0.5f, sp.cd_ground,
-                                      n_act_g, 0.0f, h, sp.kn, sp.kt, sp.max_depen, &fn_g);
-                N[8] += sp.coef_ground;
-            }
-            // the touching boxes, in box order
-            V3 sel_n = v3(0.0f, 0.0f, 1.0f), sel_vo = v3(0.0f, 0.0f, 0.0f);
-            float sel_fn = 0.0f, sel_mu = 0.0f;
-            V3 sel_jv[DO], sel_jw[DO];
-            for (unsigned m = tmask[s]; m != 0u; m &= m - 1u) {
-                const int g = __ffs(m) - 1;
-                const V3 rel = c - bp[g];
-                V3 n_local;
-                const float depth = box_sdf(quat_rotate_inv(bq[g], rel), ld3(os.b_half[g]),
-                                            &n_local) - r;
-                const V3 n = quat_rotate(bq[g], n_local);
-                V3 jv[DO], jw[DO];
-                box_jacobian(os, os.b_link[g], bp[g], olp, oaxis_w, oanchor_w, orev, opris,
-                             jv, jw);
-                V3 vbc = v3(0.0f, 0.0f, 0.0f), wb = v3(0.0f, 0.0f, 0.0f);
-#pragma unroll
-                for (int d = 0; d < DO; ++d) {
-                    vbc = vbc + jv[d] * ov[d];
-                    wb = wb + jw[d] * ov[d];
-                }
-                const V3 vo = vbc + cross(wb, rel);
-                const float mu_o = 0.5f * (sp.sph_mu[s] + os.b_mu[g]);
-                float fn;
-                const V3 f = penalty_force(depth, n, v - vo, mu_o, 0.3f, sp.cd_obj, n_act_o,
-                                           0.0f, h, sp.kn, sp.kt, sp.max_depen, &fn);
-                F = F + f;
-                const float nn[3] = {n.x, n.y, n.z};
-#pragma unroll
-                for (int a = 0; a < 3; ++a)
-#pragma unroll
-                    for (int b = 0; b < 3; ++b) N[a * 3 + b] += sp.coef_obj * nn[a] * nn[b];
-                // reaction on the object: the wrench (-f, -(rel x f)) about the
-                // box centre through the box Jacobian, and coef J^T n n^T J
-                const V3 tf = cross(rel, f);
-                float jn[DO];
-#pragma unroll
-                for (int d = 0; d < DO; ++d) {
-                    tau_o[d] -= dot(jv[d], f) + dot(jw[d], tf);
-                    jn[d] = dot(jv[d], n);
-                }
-#pragma unroll
-                for (int d = 0; d < DO; ++d)
-#pragma unroll
-                    for (int f2 = 0; f2 <= d; ++f2) Ao[d][f2] += sp.coef_obj * jn[d] * jn[f2];
-                if (id == 2 + g) {
-                    sel_n = n;
-                    sel_fn = fn;
-                    sel_mu = mu_o;
-                    sel_vo = vo;
-#pragma unroll
-                    for (int d = 0; d < DO; ++d) {
-                        sel_jv[d] = jv[d];
-                        sel_jw[d] = jw[d];
-                    }
-                }
-            }
-#if FIS_K > 0
-            // the touching grid geoms, in geom order
-            for (unsigned m = kmask[s]; m != 0u; m &= m - 1u) {
-                const int k = __ffs(m) - 1;
-                const V3 rel = c - gp[k];
-                V3 grad;
-                const float depth = grid_query_grad(stack, gr.g_gid[k],
-                                                    quat_rotate_inv(gq[k], rel), &grad) - r;
-                const V3 n = quat_rotate(gq[k], grad / fmaxf(norm(grad), 1e-9f));
-                V3 jv[DO], jw[DO];
-                box_jacobian(os, gr.g_link[k], gp[k], olp, oaxis_w, oanchor_w, orev, opris,
-                             jv, jw);
-                V3 vgc = v3(0.0f, 0.0f, 0.0f), wg = v3(0.0f, 0.0f, 0.0f);
-#pragma unroll
-                for (int d = 0; d < DO; ++d) {
-                    vgc = vgc + jv[d] * ov[d];
-                    wg = wg + jw[d] * ov[d];
-                }
-                const V3 vo = vgc + cross(wg, rel);
-                const float mu_k = 0.5f * (sp.sph_mu[s] + gr.g_mu[k]);
-                float fn;
-                const V3 f = penalty_force(depth, n, v - vo, mu_k, 0.3f, sp.cd_obj, n_act_k,
-                                           0.0f, h, sp.kn, sp.kt, sp.max_depen, &fn);
-                F = F + f;
-                const float nn[3] = {n.x, n.y, n.z};
-#pragma unroll
-                for (int a = 0; a < 3; ++a)
-#pragma unroll
-                    for (int b = 0; b < 3; ++b) N[a * 3 + b] += sp.coef_obj * nn[a] * nn[b];
-                // reaction on the object about the grid origin
-                const V3 tf = cross(rel, f);
-                float jn[DO];
-#pragma unroll
-                for (int d = 0; d < DO; ++d) {
-                    tau_o[d] -= dot(jv[d], f) + dot(jw[d], tf);
-                    jn[d] = dot(jv[d], n);
-                }
-#pragma unroll
-                for (int d = 0; d < DO; ++d)
-#pragma unroll
-                    for (int f2 = 0; f2 <= d; ++f2) Ao[d][f2] += sp.coef_obj * jn[d] * jn[f2];
-                if (id == KOFF + k) {
-                    sel_n = n;
-                    sel_fn = fn;
-                    sel_mu = mu_k;
-                    sel_vo = vo;
-#pragma unroll
-                    for (int d = 0; d < DO; ++d) {
-                        sel_jv[d] = jv[d];
-                        sel_jw[d] = jw[d];
-                    }
-                }
-            }
-            const bool on_grid = id >= KOFF;
-            const int ks = on_grid ? id - KOFF : 0;
-#else
-            const bool on_grid = false;
-            const int ks = 0;
-#endif
-            // the selected contact
-            const bool on_box = id >= 2 && !on_grid;
-            const bool on_obj = id >= 2;
-            const int gs = on_box ? id - 2 : 0;
-            const V3 n = on_obj ? sel_n : v3(0.0f, 0.0f, 1.0f);
-            const float fn = on_obj ? sel_fn : fn_g;
-            const float mu = on_obj ? sel_mu : mu_g;
-            const V3 pvel = on_obj ? sel_vo : v3(0.0f, 0.0f, 0.0f);
-            const V3 v_rel = v - pvel;
-            const V3 vt = v_rel - dot(v_rel, n) * n;
-
-            // stick-slip anchor (contact.anchor_friction), sticky spheres only
-            V3 ft = v3(0.0f, 0.0f, 0.0f);
-            const float sticky = sp.sph_sticky[s];
-            if (sticky > 0.0f) {
-                const bool same = anc_b[s] == id;
-                V3 aw = anc_p[s];                       // ground / none: world frame
-                if (anc_b[s] >= 2) {
-                    const int ga = min(anc_b[s] - 2, G - 1);
-                    aw = quat_rotate(bq[ga], anc_p[s]) + bp[ga];
-                }
-#if FIS_K > 0
-                if (anc_b[s] >= KOFF) {
-                    const int ka = min(anc_b[s] - KOFF, K - 1);
-                    aw = quat_rotate(gq[ka], anc_p[s]) + gp[ka];
-                }
-#endif
-                V3 delta = c - aw;
-                V3 delta_t = delta - dot(delta, n) * n;
-                V3 ft_raw = same ? (-sp.anchor_ks) * delta_t - sp.anchor_cdt * vt
-                                 : (-sp.anchor_cdt) * vt;
-                float ft_mag = norm(ft_raw);
-                float limit = mu * fn;
-                bool stick = (ft_mag <= limit) && same;
-                float scale = ft_mag > 1e-9f ? fminf(limit / fmaxf(ft_mag, 1e-9f), 1.0f) : 0.0f;
-                ft = ft_raw * scale;
-                V3 new_w = stick ? aw : c + ft / sp.anchor_ks;
-                anc_p[s] = on_box ? quat_rotate_inv(bq[gs], new_w - bp[gs]) : new_w;
-#if FIS_K > 0
-                if (on_grid) anc_p[s] = quat_rotate_inv(gq[ks], new_w - gp[ks]);
-#endif
-                anc_b[s] = id;
-                ft = ft * sticky;
+            if (id < 0) {          // touches nothing: no force, anchor released
+                anc_b = -1;
             } else {
-                anc_b[s] = -1;
-            }
-            F = F + ft;
-            // implicit tangential operator (I - n n^T) of the selected contact
-            {
-                const float nn[3] = {n.x, n.y, n.z};
-#pragma unroll
-                for (int a = 0; a < 3; ++a)
-#pragma unroll
-                    for (int b = 0; b < 3; ++b)
-                        N[a * 3 + b] += sp.coef_anchor * ((a == b ? 1.0f : 0.0f) - nn[a] * nn[b]);
-            }
-            // friction reaction on the object (no velocity cap: the cabinet
-            // is an articulation, not a free body)
-            if (on_box) {
-                const V3 tf = cross(c - bp[gs], ft);
-#pragma unroll
-                for (int d = 0; d < DO; ++d) tau_o[d] -= dot(sel_jv[d], ft) + dot(sel_jw[d], tf);
-            }
-#if FIS_K > 0
-            if (on_grid) {
-                const V3 tf = cross(c - gp[ks], ft);
-#pragma unroll
-                for (int d = 0; d < DO; ++d) tau_o[d] -= dot(sel_jv[d], ft) + dot(sel_jw[d], tf);
-            }
-#endif
-            // robot joint space: tau += Jp^T F,  Ac += Jp^T N Jp
-            const int li = sp.sph_link[s];
-            V3 jp[D], Njp[D];
-            for (int d = 0; d < D; ++d) {
-                jp[d] = jac_col(sp.ancestor[li][d], d, c, axis_w, anchor_w, rev, pris);
-                Njp[d] = matvec(N, jp[d]);
-            }
-            for (int d = 0; d < D; ++d) {
-                if (sp.ancestor[li][d] == 0.0f) continue;
-                tau[d] += dot(jp[d], F);
-                for (int f = 0; f <= d; ++f) {
-                    if (sp.ancestor[li][f] == 0.0f) continue;
-                    Ac[d][f] += dot(jp[d], Njp[f]);
+                float fn_g = 0.0f;
+                const float mu_g = 0.5f * (sp.sph_mu[s] + sp.ground_mu);
+                if (dg < 0.0f) {
+                    F = F + penalty_force(dg, v3(0.0f, 0.0f, 1.0f), v, mu_g, 0.5f, sp.cd_ground,
+                                          n_act_g, 0.0f, sp.h, sp.kn, sp.kt, sp.max_depen, &fn_g);
+                    N[8] += sp.coef_ground;
                 }
+                V3 sel_n = v3(0.0f, 0.0f, 1.0f), sel_vo = v3(0.0f, 0.0f, 0.0f);
+                float sel_fn = 0.0f, sel_mu = 0.0f;
+                // the touching boxes, in box order
+                for (unsigned m = tmask; m != 0u; m &= m - 1u) {
+                    const int g = __ffs(m) - 1;
+                    const V3 bp = ld3(w.bp[g]);
+                    const Q4 bq = ld4(w.bq[g]);
+                    const V3 rel = sub_r(c, bp);
+                    V3 n_local;
+                    const float depth = __fsub_rn(
+                        box_sdf_t(quat_rotate_inv_t(bq, rel), ld3(os.b_half[g]), &n_local), r);
+                    const V3 n = quat_rotate_t(bq, n_local);
+                    const float mu_o = 0.5f * (sp.sph_mu[s] + os.b_mu[g]);
+                    float fn;
+                    V3 vo;
+                    F = F + obj_pair_force(sp, os, w, os.b_link[g], bp, rel, n, depth, v, mu_o,
+                                           n_act_o, N, to, ao, &vo, &fn);
+                    if (id == 2 + g) {
+                        sel_n = n;
+                        sel_fn = fn;
+                        sel_mu = mu_o;
+                        sel_vo = vo;
+                    }
+                }
+#if FIS_K > 0
+                // the touching grid geoms, in geom order
+                for (unsigned m = kmask; m != 0u; m &= m - 1u) {
+                    const int k = __ffs(m) - 1;
+                    const V3 gp = ld3(w.gp[k]);
+                    const Q4 gq = ld4(w.gq[k]);
+                    const V3 rel = sub_r(c, gp);
+                    V3 grad;
+                    const float depth = __fsub_rn(
+                        grid_query_grad(stack, gr.g_gid[k], quat_rotate_inv_t(gq, rel), &grad), r);
+                    const float gn = fmaxf(norm_t(grad), 1e-9f);
+                    const V3 n = quat_rotate_t(
+                        gq, v3(__fdiv_rn(grad.x, gn), __fdiv_rn(grad.y, gn), __fdiv_rn(grad.z, gn)));
+                    const float mu_k = 0.5f * (sp.sph_mu[s] + gr.g_mu[k]);
+                    float fn;
+                    V3 vo;
+                    F = F + obj_pair_force(sp, os, w, gr.g_link[k], gp, rel, n, depth, v, mu_k,
+                                           n_act_k, N, to, ao, &vo, &fn);
+                    if (id == KOFF + k) {
+                        sel_n = n;
+                        sel_fn = fn;
+                        sel_mu = mu_k;
+                        sel_vo = vo;
+                    }
+                }
+                const bool on_grid = id >= KOFF;
+                const int ks = on_grid ? id - KOFF : 0;
+#else
+                const bool on_grid = false;
+#endif
+                // the selected contact
+                const bool on_box = id >= 2 && !on_grid;
+                const bool on_obj = id >= 2;
+                const int gs = on_box ? id - 2 : 0;
+                const V3 n = on_obj ? sel_n : v3(0.0f, 0.0f, 1.0f);
+                const float fn = on_obj ? sel_fn : fn_g;
+                const float mu = on_obj ? sel_mu : mu_g;
+                const V3 pvel = on_obj ? sel_vo : v3(0.0f, 0.0f, 0.0f);
+                const V3 v_rel = v - pvel;
+                const V3 vt = v_rel - dot(v_rel, n) * n;
+
+                // stick-slip anchor (contact.anchor_friction), sticky spheres only
+                V3 ft = v3(0.0f, 0.0f, 0.0f);
+                const float sticky = sp.sph_sticky[s];
+                if (sticky > 0.0f) {
+                    const bool same = anc_b == id;
+                    V3 aw = anc_p;                          // ground / none: world frame
+                    if (anc_b >= 2) {
+                        const int ga = min(anc_b - 2, G - 1);
+                        aw = add_r(quat_rotate_t(ld4(w.bq[ga]), anc_p), ld3(w.bp[ga]));
+                    }
+#if FIS_K > 0
+                    if (anc_b >= KOFF) {
+                        const int ka = min(anc_b - KOFF, K - 1);
+                        aw = add_r(quat_rotate_t(ld4(w.gq[ka]), anc_p), ld3(w.gp[ka]));
+                    }
+#endif
+                    const V3 delta = c - aw;
+                    const V3 delta_t = delta - dot(delta, n) * n;
+                    const V3 ft_raw = same ? (-sp.anchor_ks) * delta_t - sp.anchor_cdt * vt
+                                           : (-sp.anchor_cdt) * vt;
+                    const float ft_mag = norm(ft_raw);
+                    const float limit = mu * fn;
+                    const bool stick = (ft_mag <= limit) && same;
+                    const float scale =
+                        ft_mag > 1e-9f ? fminf(limit / fmaxf(ft_mag, 1e-9f), 1.0f) : 0.0f;
+                    ft = ft_raw * scale;
+                    const V3 new_w = stick ? aw : c + ft / sp.anchor_ks;
+                    anc_p = on_box ? quat_rotate_inv_t(ld4(w.bq[gs]), sub_r(new_w, ld3(w.bp[gs])))
+                                   : new_w;
+#if FIS_K > 0
+                    if (on_grid) anc_p = quat_rotate_inv_t(ld4(w.gq[ks]), sub_r(new_w, ld3(w.gp[ks])));
+#endif
+                    anc_b = id;
+                    ft = ft * sticky;
+                } else {
+                    anc_b = -1;
+                }
+                F = F + ft;
+                // implicit tangential operator (I - n n^T) of the selected contact
+                {
+                    const float nn[3] = {n.x, n.y, n.z};
+#pragma unroll
+                    for (int a = 0; a < 3; ++a)
+#pragma unroll
+                        for (int b = 0; b < 3; ++b)
+                            N[a * 3 + b] += sp.coef_anchor * ((a == b ? 1.0f : 0.0f) - nn[a] * nn[b]);
+                }
+                // friction reaction on the selected geom
+                if (on_box) obj_friction_reaction(os, w, os.b_link[gs], ld3(w.bp[gs]), c, ft, to);
+#if FIS_K > 0
+                if (on_grid) obj_friction_reaction(os, w, gr.g_link[ks], ld3(w.gp[ks]), c, ft, to);
+#endif
+            }
+            st3(w.F[s], F);
+#pragma unroll
+            for (int k = 0; k < 9; ++k) w.N[s][k] = N[k];
+            w.act[s] = id >= 0;
+        }
+        // the spheres that touch a partner, in sphere order
+        const unsigned touching = __ballot_sync(FIS_FULL_MASK, lane < S && w.act[lane]);
+        // the object's reaction: the spheres' parts summed over the lanes
+#pragma unroll
+        for (int d = 0; d < DO; ++d) to[d] = warp_sum(to[d]);
+#pragma unroll
+        for (int i = 0; i < TRIO; ++i) ao[i] = warp_sum(ao[i]);
+        if (lane == 0) {
+#pragma unroll
+            for (int d = 0; d < DO; ++d) w.tau_o[d] = to[d];
+#pragma unroll
+            for (int i = 0; i < TRIO; ++i) w.Ao[i] = ao[i];
+        }
+        __syncwarp();
+        PHASE(5)
+
+        // ---- robot joint space: N J, then tau = J^T F and Ac = J^T N J,
+        // lanes over entries summing over the touching spheres in order
+        for (int i = lane; i < S * D; i += 32)
+            st3(Njp + 3 * i, matvec(w.N[i / D], ld3(jp + 3 * i)));
+        __syncwarp();
+        {
+            constexpr int NT = TRI + D, PER = (NT + 31) / 32;
+            int dd[PER], ff[PER];
+            float acc[PER];
+#pragma unroll
+            for (int k = 0; k < PER; ++k) {
+                const int i = lane + 32 * k < NT ? lane + 32 * k : NT - 1;
+                dd[k] = i >= TRI ? i - TRI : tri_row(i);
+                ff[k] = i >= TRI ? -1 : i - dd[k] * (dd[k] + 1) / 2;   // -1: tau
+                acc[k] = 0.0f;
+            }
+            for (unsigned m = touching; m != 0u; m &= m - 1u) {
+                const int s = __ffs(m) - 1;
+                const int li = sp.sph_link[s];
+#pragma unroll
+                for (int k = 0; k < PER; ++k) {
+                    const int d = dd[k], f = ff[k];
+                    const V3 jd = ld3(jp + 3 * (s * D + d));
+                    const float term = dot(jd, f < 0 ? ld3(w.F[s]) : ld3(Njp + 3 * (s * D + f)));
+                    acc[k] += sp.ancestor[li][d] != 0.0f
+                              && (f < 0 || sp.ancestor[li][f] != 0.0f) ? term : 0.0f;
+                }
+            }
+#pragma unroll
+            for (int k = 0; k < PER; ++k) {
+                const int i = lane + 32 * k;
+                if (i < TRI) w.Ac[i] = acc[k];
+                else if (i < NT) w.tau[i - TRI] = acc[k];
             }
         }
+        __syncwarp();
+        PHASE(6)
 
         // ---- both trees: two-pass effort-clamped implicit PD ----
-        tree_step<D>(sp, M, Ac, tau, tgt, q, qv);
-        float otgt[DO];
-        for (int d = 0; d < DO; ++d) otgt[d] = oq[d];   // the object holds its own pose
-        tree_step<DO>(os, Mo, Ao, tau_o, otgt, oq, ov);
+        tree_steps(sp, os, w, w.scratch, lane);
+        PHASE(7)
     }
+    PHASES_END
 
     // ---- store state (roots and targets pass through) ----
-    for (int d = 0; d < D; ++d) {
-        OUT(R_QPOS + d) = q[d];
-        OUT(R_QVEL + d) = qv[d];
-        OUT(R_TGT + d) = tgt[d];
+    for (int r = lane; r < R_ANCP; r += 32) out[(size_t)r * E + e] = w.st[r];
+    for (int d = lane; d < D; d += 32) out[(size_t)(R_TGT + d) * E + e] = w.tgt[d];
+    if (lane < S) {
+        const int r = R_ANCP + 3 * lane;
+        out[(size_t)r * E + e] = anc_p.x;
+        out[(size_t)(r + 1) * E + e] = anc_p.y;
+        out[(size_t)(r + 2) * E + e] = anc_p.z;
+        anc_b_out[(size_t)lane * E + e] = anc_b;
     }
-    OUT(R_ROOTP) = root_p.x; OUT(R_ROOTP + 1) = root_p.y; OUT(R_ROOTP + 2) = root_p.z;
-    OUT(R_ROOTQ) = root_q.x; OUT(R_ROOTQ + 1) = root_q.y; OUT(R_ROOTQ + 2) = root_q.z;
-    OUT(R_ROOTQ + 3) = root_q.w;
-    for (int d = 0; d < DO; ++d) {
-        OUT(R_OQ + d) = oq[d];
-        OUT(R_OV + d) = ov[d];
-    }
-    OUT(R_ORP) = oroot_p.x; OUT(R_ORP + 1) = oroot_p.y; OUT(R_ORP + 2) = oroot_p.z;
-    OUT(R_ORQ) = oroot_q.x; OUT(R_ORQ + 1) = oroot_q.y; OUT(R_ORQ + 2) = oroot_q.z;
-    OUT(R_ORQ + 3) = oroot_q.w;
-    for (int s = 0; s < S; ++s) {
-        OUT(R_ANCP + 3 * s) = anc_p[s].x;
-        OUT(R_ANCP + 3 * s + 1) = anc_p[s].y;
-        OUT(R_ANCP + 3 * s + 2) = anc_p[s].z;
-        anc_b_out[(size_t)s * E + e] = anc_b[s];
-    }
-#undef IN
-#undef OUT
+}
+
+static int fis_prepare() {
+    static bool done = false;
+    if (done) return 0;
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_inner_step_obj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    done = true;
+    return 0;
 }
 
 extern "C" {
@@ -885,11 +1196,35 @@ int fis_dims(int which) {
 }
 #endif
 
-// Copy the robot / contact description into constant memory, ordered on
-// `stream`.
+// The launch configuration the wrapper checks against its own formula
+// (sim/fused.launch_config): 0 envs (warps) per block, 1 threads per block,
+// 2 dynamic shared-memory bytes per block.
+int fis_launch_config(int which) {
+    const int cfg[3] = {FIS_WARPS, FIS_THREADS, SMEM_BYTES};
+    return (which >= 0 && which < 3) ? cfg[which] : -1;
+}
+
+// Blocks of this kernel resident on one SM at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int fis_occupancy(int* blocks_per_sm) {
+    const int err = fis_prepare();
+    if (err != 0) return err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, fused_inner_step_obj_kernel, FIS_THREADS, SMEM_BYTES);
+}
+
+#ifdef FIS_PHASES
+// Where the FIS_PHASES build writes its cycles and placement:
+// [E][FIS_NPHASE + 3] i64.
+int fis_set_phase_buffer(void* buf) {
+    return (int)cudaMemcpyToSymbol(g_phase_out, &buf, sizeof(buf));
+}
+#endif
+
+// Copy the robot / contact description to the device, ordered on `stream`.
 int fis_set_spec(const void* host_spec, int bytes, void* stream) {
     if (bytes != (int)sizeof(Spec)) return -1;
-    cudaError_t err = cudaMemcpyToSymbolAsync(c_spec, host_spec, sizeof(Spec), 0,
+    cudaError_t err = cudaMemcpyToSymbolAsync(g_spec, host_spec, sizeof(Spec), 0,
                                               cudaMemcpyHostToDevice, (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
@@ -905,9 +1240,11 @@ int fis_launch(const void* in, const void* anc_b_in, void* out, void* anc_b_out,
                const void* grid_sdf, const void* grid_bbox, const void* grid_voxel, int n_grid,
                int E, int n_steps, void* stream) {
     if (E < 1 || n_steps < 0 || n_obj < 1 || n_grid < 1) return -1;
-    int blocks = (E + FIS_BLOCK - 1) / FIS_BLOCK;
+    const int err = fis_prepare();
+    if (err != 0) return err;
+    const int blocks = (E + FIS_WARPS - 1) / FIS_WARPS;
     GridStack st = {(const float*)grid_sdf, (const float*)grid_bbox, (const float*)grid_voxel};
-    fused_inner_step_obj_kernel<<<blocks, FIS_BLOCK, 0, (cudaStream_t)stream>>>(
+    fused_inner_step_obj_kernel<<<blocks, FIS_THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
         (const float*)in, (const int*)anc_b_in, (float*)out, (int*)anc_b_out,
         (const ObjSpec*)obj_table, (const GridSpec*)grid_table, st, (const int*)obj_id, E,
         n_steps);
@@ -921,8 +1258,10 @@ int fis_launch(const void* in, const void* anc_b_in, void* out, void* anc_b_out,
                const void* obj_table, const void* obj_id, int n_obj, int E, int n_steps,
                void* stream) {
     if (E < 1 || n_steps < 0 || n_obj < 1) return -1;
-    int blocks = (E + FIS_BLOCK - 1) / FIS_BLOCK;
-    fused_inner_step_obj_kernel<<<blocks, FIS_BLOCK, 0, (cudaStream_t)stream>>>(
+    const int err = fis_prepare();
+    if (err != 0) return err;
+    const int blocks = (E + FIS_WARPS - 1) / FIS_WARPS;
+    fused_inner_step_obj_kernel<<<blocks, FIS_THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
         (const float*)in, (const int*)anc_b_in, (float*)out, (int*)anc_b_out,
         (const ObjSpec*)obj_table, (const int*)obj_id, E, n_steps);
     return (int)cudaGetLastError();

@@ -30,13 +30,30 @@ takes the plain version.  The kernels want the state env-minor
 ``[E, feature]`` like the JAX package, so the wrapper packs before and
 unpacks after each launch (two small transposes per physics step).
 
-The robot and the contact constants go to the kernel's ``__constant__``
-struct (one robot for all envs).  B1b's object differs between envs: the
-per-env object spec is reduced on the host, once per scene, to a table of
-its distinct rows (one ``ObjSpec`` record each) plus an object id per env,
-both uploaded to device memory.  B1c adds a ``GridSpec`` record per distinct
-object (the mesh geoms, same id) and reads the scene's grid stack, which
-already lies on the device.
+The robot and the contact constants go to the kernel's ``Spec`` struct (one
+robot for all envs; B1a's in ``__constant__`` memory, B1b's in device
+memory, copied to shared memory by each block).  B1b's object differs
+between envs: the per-env object spec is reduced on the host, once per
+scene, to a table of its distinct rows (one ``ObjSpec`` record each) plus an
+object id per env, both uploaded to device memory.  B1c adds a ``GridSpec``
+record per distinct object (the mesh geoms, same id) and reads the scene's
+grid stack, which already lies on the device.
+
+B1a runs one thread per env.  B1b and B1c run one warp per env (the TPU
+kernel ran each env serially on one lane of a tile; carried over, one
+thread per env left 64 warps for 132 SMs at 2048 envs, each a long
+dependent chain with its working set spilled): the lanes split every phase
+of the inner step (links, (link, dof) Jacobian columns, mass-matrix
+entries, spheres, (sphere, geom) pairs, J^T N J entries, dofs of the
+Cholesky solve), the env's records and working set sit in shared memory,
+and sums have one fixed order, so n inner steps in one launch equal n
+launches bit for bit; the contact geometry is rounded as the plain version
+rounds it (``csrc/fused_geom.cuh``).  What bounds them on an H100 is the
+latency of one env's chain (the link chains, the Cholesky columns and
+substitutions), not memory (``scripts/prof_torch_fused_phases.py`` reads
+where one env's cycles go).  :func:`launch_config` gives the launch
+(``WARPS`` envs a block, the block's shared memory from the dims), which the
+wrapper checks against the library's own once per loaded library.
 """
 
 from __future__ import annotations
@@ -64,8 +81,18 @@ DIM_MACROS = ("FIS_L", "FIS_D", "FIS_S", "FIS_LO", "FIS_DO", "FIS_G", "FIS_K",
 # reset, per variant.
 launch_counts = cuda_lib.launch_counter("b1a", "b1b", "b1c")
 
+# B1b / B1c give each env a warp: WARPS envs a block, the robot's Spec once
+# per block and each env's records and working set (struct Work) in shared
+# memory (csrc/fused_inner_step_obj.cu).
+WARPS = 4
+SMEM_LIMIT = 232_448          # shared memory a block may use on sm_90 (227 KB)
+OBJ_SIGNATURES = {"fis_obj_bytes": ((), ctypes.c_int),
+                  "fis_launch_config": ((ctypes.c_int,), ctypes.c_int),
+                  "fis_occupancy": ((ctypes.c_void_p,), ctypes.c_int)}
+
 _PACKED = HostCache()  # scene.robot.parent tensor -> {key, packed Spec, ...}
-_UPLOADED = {}        # (variant, sizes) -> id of the packed spec in constant memory
+_UPLOADED = {}        # library path -> id of the packed spec on the device
+_CONFIG_CHECKED = set()  # library paths whose launch configuration was checked
 
 
 def library(variant: str, dims) -> cuda_lib.Library:
@@ -73,6 +100,7 @@ def library(variant: str, dims) -> cuda_lib.Library:
     compile-time size is a macro and is in the library's name)."""
     dims = tuple(int(d) for d in dims)
     tag = "_".join(f"{n}{d}" for n, d in zip(DIM_NAMES, dims))
+    defines = list(zip(DIM_MACROS, dims))
     stem = os.path.splitext(os.path.basename(KERNEL_SOURCES[variant]))[0]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     sig = {"fis_spec_bytes": ((), i32), "fis_state_rows": ((), i32),
@@ -80,15 +108,15 @@ def library(variant: str, dims) -> cuda_lib.Library:
     if variant == "b1a":
         sig["fis_launch"] = ((ptr, ptr, ptr, ptr, i32, i32, ptr), i32)
     elif variant == "b1b":
-        sig["fis_obj_bytes"] = ((), i32)
+        sig.update(OBJ_SIGNATURES)
         sig["fis_launch"] = ((ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr), i32)
     else:
-        sig["fis_obj_bytes"] = ((), i32)
+        sig.update(OBJ_SIGNATURES)
         sig["fis_grid_bytes"] = ((), i32)
         sig["fis_launch"] = ((ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, i32,
                               i32, i32, ptr), i32)
     return cuda_lib.Library(variant, KERNEL_SOURCES[variant], f"lib{stem}_{tag}.so",
-                            sig, defines=zip(DIM_MACROS, dims))
+                            sig, defines=defines)
 
 
 # ----------------------------------------------------------------------
@@ -360,6 +388,50 @@ def _rows(variant: str, dims) -> int:
     return state_rows(D, S) if variant == "b1a" else state_rows_obj(D, S, dims[4])
 
 
+def struct_words(dims) -> dict:
+    """4-byte words of B1b's / B1c's structs at these sizes (``Spec``,
+    ``ObjSpec``, ``GridSpec`` and the per-env working set ``Work`` of
+    ``csrc/fused_inner_step_obj.cu``); the scratch area is the largest of
+    the phases that reuse it."""
+    L, D, S, Lo, Do, G = dims[:6]
+    K = dims[6] if len(dims) > 6 else 0
+    KG = max(K, 1)
+    tri, trio = D * (D + 1) // 2, Do * (Do + 1) // 2
+    scratch = max(7 * (L + Lo), 2 * D * D, L * 12 + L * D * 6, Lo * 12 + Lo * Do * 6,
+                  S * D * 3 + max(S * G + S * KG, S * D * 3))
+    work = (2 * D + 2 * Do + 14 + D                       # state rows, targets
+            + 7 * L + 8 * D + 2 * tri + D                 # robot poses, axes, M, Ac, tau
+            + 7 * Lo + 8 * Do + 2 * trio + Do             # the object's
+            + 8 * G + 8 * KG                              # geom poses, active lists
+            + 16 * S + scratch)                           # sphere records, scratch
+    return {"spec": 26 * L + L * D + 11 * D + 7 * S + 16,
+            "obj": 26 * Lo + Lo * Do + 11 * Do + 13 * G, "grid": 11 * K,
+            "work": work}
+
+
+def launch_config(E: int, dims) -> dict:
+    """B1b's / B1c's launch for E envs at these sizes: a warp per env,
+    WARPS envs a block, and the block's dynamic shared memory: the Spec
+    once, then WARPS x (Work, ObjSpec, GridSpec)."""
+    w = struct_words(dims)
+    smem = 4 * (w["spec"] + WARPS * (w["work"] + w["obj"] + w["grid"]))
+    return {"warps_per_block": WARPS, "threads": 32 * WARPS, "blocks": -(-E // WARPS),
+            "dynamic_smem_bytes": smem, "work_bytes": 4 * w["work"]}
+
+
+def occupancy(scene: engine.SceneSpec) -> int:
+    """Blocks of the scene's B1b / B1c kernel resident on one SM at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
+    device)."""
+    kind = variant(scene)
+    if kind == "b1a":
+        raise ValueError("occupancy is reported for kernels B1b and B1c")
+    out = ctypes.c_int(0)
+    err = library(kind, _dims(scene)).load().fis_occupancy(ctypes.byref(out))
+    cuda_lib.check_launch(err, f"fused_inner_step ({kind}) occupancy query")
+    return out.value
+
+
 # ----------------------------------------------------------------------
 # state layout: [E, feature] (the port) <-> [feature, E] (the kernel)
 # ----------------------------------------------------------------------
@@ -432,7 +504,8 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
         raise ValueError("state buffers must be contiguous")
     check_scene(scene)
 
-    lib = library(kind, dims).load()
+    lib_def = library(kind, dims)
+    lib = lib_def.load()
     got = tuple(lib.fis_dims(i) for i in range(len(dims)))
     if got != tuple(dims):
         raise RuntimeError(f"{kind} library was built for sizes {got}, not {dims}")
@@ -449,6 +522,13 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
                 raise RuntimeError(
                     f"grid packing disagrees with the kernel: {tables[1].shape[1] * 4}"
                     f" vs {lib.fis_grid_bytes()} bytes per record")
+        if lib_def.path not in _CONFIG_CHECKED:
+            cfg = launch_config(E, dims)
+            got = tuple(lib.fis_launch_config(i) for i in range(3))
+            if got != (cfg["warps_per_block"], cfg["threads"], cfg["dynamic_smem_bytes"]):
+                raise RuntimeError(
+                    f"launch configuration disagrees with the kernel: {got} vs {cfg}")
+            _CONFIG_CHECKED.add(lib_def.path)
         if tables[0].shape[1] * 4 != lib.fis_obj_bytes():
             raise RuntimeError(
                 f"object packing disagrees with the kernel: {tables[0].shape[1] * 4}"
@@ -468,11 +548,11 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
                                  f"the state on {buf.device}")
     with torch.cuda.device(buf.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if _UPLOADED.get((kind, dims)) != id(spec):
+        if _UPLOADED.get(lib_def.path) != id(spec):
             err = lib.fis_set_spec(spec.ctypes.data, spec.nbytes, stream)
             if err != 0:
                 raise RuntimeError(f"uploading the scene spec failed: CUDA error {err}")
-            _UPLOADED[kind, dims] = id(spec)
+            _UPLOADED[lib_def.path] = id(spec)
         out = torch.empty_like(buf)
         anc_out = torch.empty_like(anc_b)
         if kind == "b1a":
