@@ -158,7 +158,7 @@ PATHS = (
          part="body", rollout=random_rollout, rollout_steps=20, policy=random_policy,
          draws=lambda rs, n: (rs.uniform(-0.15, 0.15, (n, 2)).astype(np.float32),
                               rs.uniform(-np.pi, np.pi, n).astype(np.float32)),
-         chain_physics_steps=1, chain_tol=1e-6, min_success=None),
+         chain_physics_steps=1, chain_tol=0.0, min_success=None),
     # the checkpoint was trained without observation normalisation: the
     # flag flips the YAML default, as for the JAX package's evaluation
     Path(kernel="b1b",
@@ -289,7 +289,7 @@ def rounding_shares(n=200_000):
     floats as ``sqrt((x^2 + z^2) + y^2)`` (beside the order x, y, z) and
     ``ops/rotations.quat_rotate`` as separately rounded operations.  A
     PyTorch whose kernels round otherwise lowers the copied formulas'
-    shares, and B1b's / B1c's contact tests may then flip against the plain
+    shares, and the kernels' contact tests may then flip against the plain
     version."""
     from partmanip_tpu_torch.ops import rotations as rot
     from partmanip_tpu_torch.ops.fps import fma_f32 as fma
@@ -321,8 +321,8 @@ def phase_kernel_check(path, env, cases):
     """The kernel against ``engine._inner_step`` for one inner step on each
     case, plus k inner steps in one launch against k launches of one step
     (k = the inner steps of ``path.chain_physics_steps`` physics steps).
-    B1b / B1c also report :func:`rounding_shares`, the PyTorch rounding
-    their contact geometry copies."""
+    Also reports :func:`rounding_shares`, the PyTorch rounding the kernels'
+    contact geometry copies."""
     from partmanip_tpu_torch.sim import engine, fused
     from partmanip_tpu_torch.utils import contact_states
     p = env.scene.params
@@ -359,14 +359,13 @@ def phase_kernel_check(path, env, cases):
     dead = [c for c, m in counts.items() if m == 0]
     if dead:
         failures.append(f"contact case has dead branches {dead}: {counts}")
-    rounding = rounding_shares() if path.kernel in ("b1b", "b1c") else None
+    rounding = rounding_shares()
     emit("kernel_check", variant=path.kernel, num_envs=env.num_envs,
          tolerances={f: TOL[f] for f in errs}, cases=report, failures=failures,
-         **({"rounding_share_bit_equal": rounding} if rounding else {}))
+         rounding_share_bit_equal=rounding)
     if failures:
         raise RuntimeError(f"kernel_check ({path.kernel}) failed: " + "; ".join(failures)
-                           + (f" (PyTorch's rounding, share bit-equal: {rounding})"
-                              if rounding else ""))
+                           + f" (PyTorch's rounding, share bit-equal: {rounding})")
     return worst
 
 
@@ -580,8 +579,8 @@ def phase_timing(path, env, sim, targets, contact_case, repeats=20):
     """Kernel, wrapper and plain-version times at the main path's shapes
     (E = 2048, one physics step = substeps x inner_substeps inner steps per
     launch), by CUDA events, on the path's rollout states; the kernel also
-    on the hand-made contact states, where the contact branches run.  For
-    B1b / B1c also :func:`warp_kernel_timing` (env sweep, occupancy)."""
+    on the hand-made contact states, where the contact branches run; and
+    :func:`warp_kernel_timing` (device time, env sweep, occupancy)."""
     from partmanip_tpu_torch.sim import engine, fused
     from partmanip_tpu_torch.utils import contact_states
     p = env.scene.params
@@ -619,8 +618,7 @@ def phase_timing(path, env, sim, targets, contact_case, repeats=20):
            "bound_operations_ms": ops_ms, "bound_bytes_ms": bytes_ms,
            "flops_per_launch": flops, "bytes_per_launch": nbytes,
            "touching": touching, "num_envs": E, "n_steps": n, "library_ms": None}
-    if env.scene.obj_tree is not None:
-        out.update(warp_kernel_timing(env.scene, buf, anc_b, n))
+    out.update(warp_kernel_timing(env.scene, buf, anc_b, n))
     return out
 
 
@@ -629,7 +627,10 @@ SWEEP_ENVS = (256, 1024, 2048, 4096, 16384)
 
 def repeat_envs(scene, idx):
     """The scene with its per-env object specs taken at ``idx`` (env e of
-    the new scene is env idx[e] of this one; shared leaves stay)."""
+    the new scene is env idx[e] of this one; shared leaves stay).  A free-
+    body scene has none and comes back as it is."""
+    if scene.obj_tree is None:
+        return scene
     E0 = scene.obj_tree.parent.shape[0]
 
     def take(part):
@@ -640,21 +641,26 @@ def repeat_envs(scene, idx):
                           obj_grids=take(scene.obj_grids))
 
 
+# the kernel function of each physics variant, as the profiler names it
+KERNEL_FUNCTIONS = {"b1a": "fused_inner_step_kernel", "b1b": "fused_inner_step_obj_kernel",
+                    "b1c": "fused_inner_step_obj_kernel"}
+
+
 @torch.no_grad()
 def warp_kernel_timing(scene, buf, anc_b, n, repeats=10):
-    """B1b / B1c (a warp per env): the launch configuration (the launch's
-    inputs), the blocks the runtime keeps resident per SM (its occupancy
-    query), the kernel's device time at the main path's shapes
-    (``torch.profiler``), and its time per launch at each env count of
-    SWEEP_ENVS (per call, as ``ms``, and queued back to back), the state
-    made by repeating the 2048-env state's columns (and the envs' cabinets
-    alike)."""
+    """The physics kernels that split an env over lanes (B1a a half-warp,
+    B1b / B1c a warp): the launch configuration (the launch's inputs), the
+    blocks the runtime keeps resident per SM (its occupancy query), the
+    kernel's device time at the main path's shapes (``torch.profiler``),
+    and its time per launch at each env count of SWEEP_ENVS (per call, as
+    ``ms``, and queued back to back), the state made by repeating the
+    2048-env state's columns (and the envs' cabinets alike)."""
     from partmanip_tpu_torch.sim import fused
     E0 = buf.shape[1]
     blocks_per_sm = fused.occupancy(scene)
     cfg = fused.launch_config(E0, fused._dims(scene))
     device_ms, _ = _device_ms(lambda: fused.launch_packed(scene, buf, anc_b, n),
-                              ["fused_inner_step_obj"])
+                              [KERNEL_FUNCTIONS[fused.variant(scene)]])
     by_envs, queued_by_envs, keep = {}, {}, []
     for E in SWEEP_ENVS:
         idx = torch.arange(E, device=buf.device) % E0

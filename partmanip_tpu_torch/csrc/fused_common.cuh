@@ -1,9 +1,11 @@
 // Device functions shared by the fused inner-step kernels (B1a in
-// fused_inner_step.cu, B1b in fused_inner_step_obj.cu): 3-vectors and xyzw
-// quaternions, the box SDF, the regularized penalty force and the unrolled
-// Cholesky solve.  Each follows the plain PyTorch version
-// (partmanip_tpu_torch/ops/rotations.py, ops/linalg.py, sim/contact.py)
-// literally: every max(x, eps) guard is kept; build without -use_fast_math.
+// fused_inner_step.cu, B1b / B1c in fused_inner_step_obj.cu): 3-vectors and
+// xyzw quaternions, the world inertia and the regularized penalty force.
+// Each follows the plain PyTorch version (partmanip_tpu_torch/ops/
+// rotations.py, sim/contact.py) literally: every max(x, eps) guard is kept;
+// build without -use_fast_math.  fused_geom.cuh holds the contact geometry
+// rounded as the plain version rounds it, fused_warp.cuh the lane-level
+// helpers and the Cholesky solve.
 
 #pragma once
 
@@ -24,6 +26,9 @@ __device__ __forceinline__ V3 cross(V3 a, V3 b) {
 }
 __device__ __forceinline__ float norm(V3 a) { return sqrtf(dot(a, a)); }
 __device__ __forceinline__ V3 ld3(const float* p) { return v3(p[0], p[1], p[2]); }
+__device__ __forceinline__ Q4 ld4(const float* p) { Q4 r = {p[0], p[1], p[2], p[3]}; return r; }
+__device__ __forceinline__ void st3(float* p, V3 v) { p[0] = v.x; p[1] = v.y; p[2] = v.z; }
+__device__ __forceinline__ void st4(float* p, Q4 q) { p[0] = q.x; p[1] = q.y; p[2] = q.z; p[3] = q.w; }
 
 __device__ __forceinline__ Q4 quat_mul(Q4 a, Q4 b) {
     Q4 r;
@@ -37,10 +42,6 @@ __device__ __forceinline__ V3 quat_rotate(Q4 q, V3 v) {
     V3 qv = v3(q.x, q.y, q.z);
     V3 t = 2.0f * cross(qv, v);
     return v + q.w * t + cross(qv, t);
-}
-__device__ __forceinline__ V3 quat_rotate_inv(Q4 q, V3 v) {
-    Q4 c = {-q.x, -q.y, -q.z, q.w};
-    return quat_rotate(c, v);
 }
 // xyzw quat -> row-major 3x3, with the 2/|q|^2 factor of the plain version
 __device__ __forceinline__ void quat_to_mat(Q4 q, float* m) {
@@ -81,28 +82,6 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
     return fminf(fmaxf(x, lo), hi);
 }
 
-// Signed distance and outward normal of an axis-aligned box at local p.
-__device__ __forceinline__ float box_sdf(V3 p, V3 half, V3* normal) {
-    V3 q = v3(fabsf(p.x) - half.x, fabsf(p.y) - half.y, fabsf(p.z) - half.z);
-    V3 q_out = v3(fmaxf(q.x, 0.0f), fmaxf(q.y, 0.0f), fmaxf(q.z, 0.0f));
-    float d_out = norm(q_out);
-    float q_max = fmaxf(q.x, fmaxf(q.y, q.z));
-    float d_in = fminf(q_max, 0.0f);
-    V3 sgn = v3(p.x >= 0.0f ? 1.0f : -1.0f, p.y >= 0.0f ? 1.0f : -1.0f,
-                p.z >= 0.0f ? 1.0f : -1.0f);
-    if (d_out > 0.0f) {
-        float inv = fmaxf(d_out, 1e-9f);
-        *normal = v3(sgn.x * q_out.x / inv, sgn.y * q_out.y / inv, sgn.z * q_out.z / inv);
-    } else {
-        // inside: face(s) of least penetration
-        V3 n_in = v3(sgn.x * (q.x == q_max ? 1.0f : 0.0f),
-                     sgn.y * (q.y == q_max ? 1.0f : 0.0f),
-                     sgn.z * (q.z == q_max ? 1.0f : 0.0f));
-        *normal = n_in / fmaxf(norm(n_in), 1e-9f);
-    }
-    return d_out + d_in;
-}
-
 // Regularized penalty force of one contact (contact.penalty_forces); the
 // caller has already established that the contact touches (depth < 0).
 // n_act is the number of touching contacts sharing the impulse budget.
@@ -125,32 +104,4 @@ __device__ __forceinline__ V3 penalty_force(float depth, V3 n, V3 v_rel, float m
     V3 ft = ((-ft_mag) * vt) / fmaxf(vt_norm, 1e-6f);
     *fn_out = fn;
     return fn * n + ft;
-}
-
-// In-place lower Cholesky of the N x N SPD matrix A (lower triangle read),
-// then solve A x = b (ops/linalg.py: cholesky_factor + cholesky_solve).
-template <int N>
-__device__ __forceinline__ void spd_solve(float (*A)[N], const float* b, float* x) {
-    for (int j = 0; j < N; ++j) {
-        float s = A[j][j];
-        for (int k = 0; k < j; ++k) s -= A[j][k] * A[j][k];
-        float ljj = sqrtf(fmaxf(s, 1e-12f));
-        A[j][j] = ljj;
-        for (int i = j + 1; i < N; ++i) {
-            float r = A[i][j];
-            for (int k = 0; k < j; ++k) r -= A[j][k] * A[i][k];
-            A[i][j] = r / ljj;
-        }
-    }
-    float y[N];
-    for (int i = 0; i < N; ++i) {
-        float s = b[i];
-        for (int k = 0; k < i; ++k) s -= A[i][k] * y[k];
-        y[i] = s / A[i][i];
-    }
-    for (int i = N - 1; i >= 0; --i) {
-        float s = y[i];
-        for (int k = i + 1; k < N; ++k) s -= A[k][i] * x[k];
-        x[i] = s / A[i][i];
-    }
 }

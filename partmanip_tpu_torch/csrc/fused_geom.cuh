@@ -1,4 +1,4 @@
-// The contact geometry of kernels B1b / B1c rounded as the plain version
+// The contact geometry of kernels B1a / B1b / B1c rounded as the plain version
 // rounds it on the card: forward kinematics, sphere centres, geom frames,
 // a sphere's point in a geom's frame, the box distance and the trilinear
 // SDF lookup.  Which side of a test a contact falls on (touching at depth
@@ -14,7 +14,7 @@
 // copied formula equals this PyTorch's result, so that a PyTorch that
 // rounds otherwise shows in the run whose check it fails).  The rest of the
 // kernel (Jacobians, forces, the solves) keeps fma contraction: it feeds no
-// such test.  Kept apart from fused_common.cuh, which B1a builds.
+// such test.
 
 #pragma once
 

@@ -381,54 +381,9 @@ constexpr int FIS_THREADS = 32 * FIS_WARPS;
 constexpr int SMEM_BYTES = 4 * (SPEC_WORDS + FIS_WARPS * (WORK_WORDS + OBJ_WORDS + GRID_WORDS));
 static_assert(SMEM_BYTES <= 232448, "a block's shared memory exceeds the H100's 227 KB");
 
-// Built with FIS_PHASES (scripts/prof_torch_fused_phases.py builds it; the
-// default build has none of it), lane 0 of each warp adds up the SM clock
-// cycles of each phase of the inner step (FIS_NPHASE of them, over all
-// n_steps) and writes them to a device buffer [E][FIS_NPHASE + 3]
-// (fis_set_phase_buffer), followed by the warp's SM and its start and end
-// on the card's global timer (ns): where one env's latency goes, and where
-// and when its warp ran.
+// The phases the FIS_PHASES build times (fused_phases.cuh).
 #define FIS_NPHASE 8
-#ifdef FIS_PHASES
-__device__ long long* g_phase_out;
-__device__ __forceinline__ long long fis_globaltimer() {
-    long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    return t;
-}
-__device__ __forceinline__ long long fis_smid() {
-    unsigned id;
-    asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
-    return id;
-}
-#define PHASES_BEGIN \
-    const long long ph_start = fis_globaltimer(); \
-    long long ph_t0 = clock64(), ph_acc[FIS_NPHASE] = {};
-#define PHASE(i) { const long long ph_t = clock64(); ph_acc[i] += ph_t - ph_t0; ph_t0 = ph_t; }
-#define PHASES_END \
-    if (lane == 0) { \
-        long long* ph_out = g_phase_out + (size_t)e * (FIS_NPHASE + 3); \
-        for (int i = 0; i < FIS_NPHASE; ++i) ph_out[i] = ph_acc[i]; \
-        ph_out[FIS_NPHASE] = fis_smid(); \
-        ph_out[FIS_NPHASE + 1] = ph_start; \
-        ph_out[FIS_NPHASE + 2] = fis_globaltimer(); \
-    }
-#else
-#define PHASES_BEGIN
-#define PHASE(i)
-#define PHASES_END
-#endif
-
-__device__ __forceinline__ Q4 ld4(const float* p) { Q4 r = {p[0], p[1], p[2], p[3]}; return r; }
-__device__ __forceinline__ void st3(float* p, V3 v) { p[0] = v.x; p[1] = v.y; p[2] = v.z; }
-__device__ __forceinline__ void st4(float* p, Q4 q) { p[0] = q.x; p[1] = q.y; p[2] = q.z; p[3] = q.w; }
-
-// (d, f) of entry i of a row-major lower triangle (i = d (d + 1) / 2 + f).
-__device__ __forceinline__ int tri_row(int i) {
-    int d = 0;
-    while ((d + 1) * (d + 2) / 2 <= i) ++d;
-    return d;
-}
+#include "fused_phases.cuh"
 
 // Linear Jacobian column of dof d for a world point attached to a link with
 // ancestor flag a (kinematics._columns).
@@ -578,21 +533,6 @@ __device__ __forceinline__ void tree_mass(const T& t, const float (*lp)[3], cons
         if (lane + 32 * k < NT) Mt[lane + 32 * k] = m[k];
     }
     __syncwarp();
-}
-
-// Row d of A = M + diag + Ac (lower triangles Mt, Act) into registers,
-// zeros past the diagonal; a padding lane (real false) takes row ri of the
-// identity instead.
-template <int NR>
-__device__ __forceinline__ void system_row(float (&row)[NR], int ri, const float* Mt,
-                                           const float* Act, int d, float diag, bool real) {
-    const int base = d * (d + 1) / 2;
-#pragma unroll
-    for (int f = 0; f < NR; ++f) {
-        const int i = base + (f < d ? f : d);
-        const float a = f < d ? Mt[i] + Act[i] : (f == d ? Mt[i] + diag + Act[i] : 0.0f);
-        row[f] = real ? a : (f == ri ? 1.0f : 0.0f);
-    }
 }
 
 // Two-pass effort-clamped implicit PD step (dynamics.step_tree) of both
@@ -1153,7 +1093,7 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
         tree_steps(sp, os, w, w.scratch, lane);
         PHASE(7)
     }
-    PHASES_END
+    PHASES_END(lane == 0)
 
     // ---- store state (roots and targets pass through) ----
     for (int r = lane; r < R_ANCP; r += 32) out[(size_t)r * E + e] = w.st[r];
@@ -1212,14 +1152,6 @@ int fis_occupancy(int* blocks_per_sm) {
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks_per_sm, fused_inner_step_obj_kernel, FIS_THREADS, SMEM_BYTES);
 }
-
-#ifdef FIS_PHASES
-// Where the FIS_PHASES build writes its cycles and placement:
-// [E][FIS_NPHASE + 3] i64.
-int fis_set_phase_buffer(void* buf) {
-    return (int)cudaMemcpyToSymbol(g_phase_out, &buf, sizeof(buf));
-}
-#endif
 
 // Copy the robot / contact description to the device, ordered on `stream`.
 int fis_set_spec(const void* host_spec, int bytes, void* stream) {

@@ -1,9 +1,9 @@
-// Warp-level helpers of the fused inner-step kernels that give each env a
-// warp (B1b / B1c in fused_inner_step_obj.cu): a deterministic warp sum and
-// the Cholesky solve of an N x N SPD system with one row per lane.  Kept
-// apart from fused_common.cuh, which B1a (one thread per env) also builds.
-// Every sum here has one fixed order, so a result does not depend on timing;
-// no atomics.
+// Warp-level helpers of the fused inner-step kernels that split an env over
+// lanes (B1b / B1c in fused_inner_step_obj.cu, a warp per env; B1a in
+// fused_inner_step.cu, a half-warp per env): deterministic warp and
+// half-warp sums and counts, and the Cholesky solve of an N x N SPD system
+// with one row per lane.  Every sum here has one fixed order, so a result
+// does not depend on timing; no atomics.
 
 #pragma once
 
@@ -22,6 +22,28 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Number of lanes whose predicate holds (an exact integer count).
 __device__ __forceinline__ int warp_count(bool pred) {
     return __popc(__ballot_sync(FIS_FULL_MASK, pred));
+}
+
+// The lanes of the half-warp that starts at lane base (0 or 16) whose
+// predicate holds, as a 16-bit mask (bit i: lane base + i).  Every lane of
+// the warp calls it.
+__device__ __forceinline__ unsigned half_ballot(bool pred, int base) {
+    return (__ballot_sync(FIS_FULL_MASK, pred) >> base) & 0xffffu;
+}
+
+// Number of lanes of the half-warp that starts at base whose predicate
+// holds (an exact integer count).
+__device__ __forceinline__ int half_count(bool pred, int base) {
+    return __popc(half_ballot(pred, base));
+}
+
+// Sum of v over the 16 lanes of each half-warp by a butterfly (xor 8, 4, 2,
+// 1): every lane of a half ends with the same bits, and the two halves never
+// mix.
+__device__ __forceinline__ float half_sum(float v) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(FIS_FULL_MASK, v, off);
+    return v;
 }
 
 // IEEE a / b and sqrt(x), as "/" and sqrtf compile without fast math, but
@@ -107,4 +129,26 @@ __device__ __forceinline__ float spd_solve_warp(float (&row)[N], float b, float*
     }
     __syncwarp();
     return x;
+}
+
+// (d, f) of entry i of a row-major lower triangle (i = d (d + 1) / 2 + f).
+__device__ __forceinline__ int tri_row(int i) {
+    int d = 0;
+    while ((d + 1) * (d + 2) / 2 <= i) ++d;
+    return d;
+}
+
+// Row d of A = M + diag + Ac (lower triangles Mt, Act) into registers,
+// zeros past the diagonal; a padding lane (real false) takes row ri of the
+// identity instead (all zeros for ri >= NR): spd_solve_warp's row.
+template <int NR>
+__device__ __forceinline__ void system_row(float (&row)[NR], int ri, const float* Mt,
+                                           const float* Act, int d, float diag, bool real) {
+    const int base = d * (d + 1) / 2;
+#pragma unroll
+    for (int f = 0; f < NR; ++f) {
+        const int i = base + (f < d ? f : d);
+        const float a = f < d ? Mt[i] + Act[i] : (f == d ? Mt[i] + diag + Act[i] : 0.0f);
+        row[f] = real ? a : (f == ri ? 1.0f : 0.0f);
+    }
 }

@@ -9,7 +9,8 @@ the Pallas kernel ``_inner_step_tiled``, whose ``has_body`` / ``has_obj`` /
 narrowphase ``_grid_narrowphase`` runs inside B1c).  The kernel sources are
 ``csrc/fused_inner_step.cu`` (B1a) and ``csrc/fused_inner_step_obj.cu``
 (B1b; B1c is the same file compiled with ``FIS_K > 0``), sharing
-``csrc/fused_common.cuh``; each is compiled with ``nvcc`` for ``sm_90a`` at
+``csrc/fused_common.cuh``, ``fused_geom.cuh`` and ``fused_warp.cuh``; each
+is compiled with ``nvcc`` for ``sm_90a`` at
 first use into a shared library with a plain C interface, keyed on every
 compile-time size, and loaded with ``ctypes`` (``utils/cuda_lib.py``, shared
 by every kernel of the port).  Nothing here needs ``nvcc`` or a GPU at
@@ -31,29 +32,31 @@ takes the plain version.  The kernels want the state env-minor
 unpacks after each launch (two small transposes per physics step).
 
 The robot and the contact constants go to the kernel's ``Spec`` struct (one
-robot for all envs; B1a's in ``__constant__`` memory, B1b's in device
-memory, copied to shared memory by each block).  B1b's object differs
+robot for all envs, in device memory, copied to shared memory by each
+block).  B1b's object differs
 between envs: the per-env object spec is reduced on the host, once per
 scene, to a table of its distinct rows (one ``ObjSpec`` record each) plus an
 object id per env, both uploaded to device memory.  B1c adds a ``GridSpec``
 record per distinct object (the mesh geoms, same id) and reads the scene's
 grid stack, which already lies on the device.
 
-B1a runs one thread per env.  B1b and B1c run one warp per env (the TPU
-kernel ran each env serially on one lane of a tile; carried over, one
-thread per env left 64 warps for 132 SMs at 2048 envs, each a long
-dependent chain with its working set spilled): the lanes split every phase
-of the inner step (links, (link, dof) Jacobian columns, mass-matrix
-entries, spheres, (sphere, geom) pairs, J^T N J entries, dofs of the
-Cholesky solve), the env's records and working set sit in shared memory,
-and sums have one fixed order, so n inner steps in one launch equal n
-launches bit for bit; the contact geometry is rounded as the plain version
-rounds it (``csrc/fused_geom.cuh``).  What bounds them on an H100 is the
-latency of one env's chain (the link chains, the Cholesky columns and
+B1b and B1c run one warp per env, B1a (one tree, whose serial phases fit
+in 16 lanes) a half-warp per env, two envs a warp.  The TPU kernel ran each
+env serially on one lane of a tile; carried over, one thread per env left
+64 warps for 132 SMs at 2048 envs, each a long dependent chain with its
+working set spilled.  Here the lanes split every phase of the inner step
+(links, (link, dof) Jacobian columns, mass-matrix entries, spheres,
+(sphere, geom) pairs or touching spheres, J^T N J entries, dofs of the
+Cholesky solve, B1a's box corners and axes), the env's records and
+working set sit in shared memory, and sums have one fixed order, so n
+inner steps in one launch equal n launches bit for bit; the contact
+geometry is rounded as the plain version rounds it
+(``csrc/fused_geom.cuh``).  What bounds them on an H100 is the latency of
+one env's chain (the link chains, the Cholesky columns and
 substitutions), not memory (``scripts/prof_torch_fused_phases.py`` reads
-where one env's cycles go).  :func:`launch_config` gives the launch
-(``WARPS`` envs a block, the block's shared memory from the dims), which the
-wrapper checks against the library's own once per loaded library.
+where one env's cycles go).  :func:`launch_config` gives the launch (envs
+a block, the block's shared memory from the dims), which the wrapper
+checks against the library's own once per loaded library.
 """
 
 from __future__ import annotations
@@ -83,12 +86,11 @@ launch_counts = cuda_lib.launch_counter("b1a", "b1b", "b1c")
 
 # B1b / B1c give each env a warp: WARPS envs a block, the robot's Spec once
 # per block and each env's records and working set (struct Work) in shared
-# memory (csrc/fused_inner_step_obj.cu).
+# memory (csrc/fused_inner_step_obj.cu).  B1a gives each env a half-warp:
+# B1A_WARPS warps, 2 x B1A_WARPS envs a block (csrc/fused_inner_step.cu).
 WARPS = 4
+B1A_WARPS = 2
 SMEM_LIMIT = 232_448          # shared memory a block may use on sm_90 (227 KB)
-OBJ_SIGNATURES = {"fis_obj_bytes": ((), ctypes.c_int),
-                  "fis_launch_config": ((ctypes.c_int,), ctypes.c_int),
-                  "fis_occupancy": ((ctypes.c_void_p,), ctypes.c_int)}
 
 _PACKED = HostCache()  # scene.robot.parent tensor -> {key, packed Spec, ...}
 _UPLOADED = {}        # library path -> id of the packed spec on the device
@@ -104,14 +106,15 @@ def library(variant: str, dims) -> cuda_lib.Library:
     stem = os.path.splitext(os.path.basename(KERNEL_SOURCES[variant]))[0]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     sig = {"fis_spec_bytes": ((), i32), "fis_state_rows": ((), i32),
-           "fis_dims": ((i32,), i32), "fis_set_spec": ((ptr, i32, ptr), i32)}
+           "fis_dims": ((i32,), i32), "fis_set_spec": ((ptr, i32, ptr), i32),
+           "fis_launch_config": ((i32,), i32), "fis_occupancy": ((ptr,), i32)}
     if variant == "b1a":
         sig["fis_launch"] = ((ptr, ptr, ptr, ptr, i32, i32, ptr), i32)
     elif variant == "b1b":
-        sig.update(OBJ_SIGNATURES)
+        sig["fis_obj_bytes"] = ((), i32)
         sig["fis_launch"] = ((ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr), i32)
     else:
-        sig.update(OBJ_SIGNATURES)
+        sig["fis_obj_bytes"] = ((), i32)
         sig["fis_grid_bytes"] = ((), i32)
         sig["fis_launch"] = ((ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, i32,
                               i32, i32, ptr), i32)
@@ -120,7 +123,7 @@ def library(variant: str, dims) -> cuda_lib.Library:
 
 
 # ----------------------------------------------------------------------
-# scene description -> the kernel's constant-memory struct
+# scene description -> the kernel's Spec struct
 # ----------------------------------------------------------------------
 
 def check_scene(scene: engine.SceneSpec) -> None:
@@ -389,10 +392,17 @@ def _rows(variant: str, dims) -> int:
 
 
 def struct_words(dims) -> dict:
-    """4-byte words of B1b's / B1c's structs at these sizes (``Spec``,
-    ``ObjSpec``, ``GridSpec`` and the per-env working set ``Work`` of
-    ``csrc/fused_inner_step_obj.cu``); the scratch area is the largest of
-    the phases that reuse it."""
+    """4-byte words of the kernel's structs at these sizes: for B1a (dims
+    (L, D, S)) ``Spec`` and the per-env working set ``Work`` of
+    ``csrc/fused_inner_step.cu``, for B1b / B1c ``Spec``, ``ObjSpec``,
+    ``GridSpec`` and ``Work`` of ``csrc/fused_inner_step_obj.cu``; the
+    scratch area is the largest of the phases that reuse it."""
+    if len(dims) == 3:
+        L, D, S = dims
+        scratch = max(7 * L, D * D, L * 12 + L * D * 6, S * D * 3 + S * 12)
+        work = (12 * D + 20 + 7 * L + D * (D + 1)     # state, targets, poses, axes, M, Ac, tau
+                + 13 * S + scratch)                  # sphere records and anchors, scratch
+        return {"spec": 26 * L + L * D + 11 * D + 7 * S + 33, "work": work}
     L, D, S, Lo, Do, G = dims[:6]
     K = dims[6] if len(dims) > 6 else 0
     KG = max(K, 1)
@@ -410,22 +420,28 @@ def struct_words(dims) -> dict:
 
 
 def launch_config(E: int, dims) -> dict:
-    """B1b's / B1c's launch for E envs at these sizes: a warp per env,
-    WARPS envs a block, and the block's dynamic shared memory: the Spec
-    once, then WARPS x (Work, ObjSpec, GridSpec)."""
+    """The kernel's launch for E envs at these sizes.  B1a (dims (L, D,
+    S)): two envs a warp, B1A_WARPS warps a block, and the block's dynamic
+    shared memory: the Spec once, then a Work per env.  B1b / B1c: a warp
+    per env, WARPS envs a block, the Spec once, then WARPS x (Work,
+    ObjSpec, GridSpec)."""
     w = struct_words(dims)
+    if len(dims) == 3:
+        envs = 2 * B1A_WARPS
+        return {"envs_per_warp": 2, "warps_per_block": B1A_WARPS, "envs_per_block": envs,
+                "threads": 32 * B1A_WARPS, "blocks": -(-E // envs),
+                "dynamic_smem_bytes": 4 * (w["spec"] + envs * w["work"]),
+                "work_bytes": 4 * w["work"]}
     smem = 4 * (w["spec"] + WARPS * (w["work"] + w["obj"] + w["grid"]))
     return {"warps_per_block": WARPS, "threads": 32 * WARPS, "blocks": -(-E // WARPS),
             "dynamic_smem_bytes": smem, "work_bytes": 4 * w["work"]}
 
 
 def occupancy(scene: engine.SceneSpec) -> int:
-    """Blocks of the scene's B1b / B1c kernel resident on one SM at once
+    """Blocks of the scene's kernel resident on one SM at once
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
     device)."""
     kind = variant(scene)
-    if kind == "b1a":
-        raise ValueError("occupancy is reported for kernels B1b and B1c")
     out = ctypes.c_int(0)
     err = library(kind, _dims(scene)).load().fis_occupancy(ctypes.byref(out))
     cuda_lib.check_launch(err, f"fused_inner_step ({kind}) occupancy query")
@@ -515,6 +531,18 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
         raise RuntimeError(
             f"packing disagrees with the kernel: spec {spec.nbytes} vs "
             f"{lib.fis_spec_bytes()} bytes, rows {rows} vs {lib.fis_state_rows()}")
+    if lib_def.path not in _CONFIG_CHECKED:
+        cfg = launch_config(E, dims)
+        if kind == "b1a":
+            got = tuple(lib.fis_launch_config(i) for i in range(4))
+            want = (cfg["envs_per_block"], cfg["threads"], cfg["dynamic_smem_bytes"],
+                    cfg["envs_per_warp"])
+        else:
+            got = tuple(lib.fis_launch_config(i) for i in range(3))
+            want = (cfg["warps_per_block"], cfg["threads"], cfg["dynamic_smem_bytes"])
+        if got != want:
+            raise RuntimeError(f"launch configuration disagrees with the kernel: {got} vs {cfg}")
+        _CONFIG_CHECKED.add(lib_def.path)
     if kind != "b1a":
         tables = packed["tables"]
         if kind == "b1c":
@@ -522,13 +550,6 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
                 raise RuntimeError(
                     f"grid packing disagrees with the kernel: {tables[1].shape[1] * 4}"
                     f" vs {lib.fis_grid_bytes()} bytes per record")
-        if lib_def.path not in _CONFIG_CHECKED:
-            cfg = launch_config(E, dims)
-            got = tuple(lib.fis_launch_config(i) for i in range(3))
-            if got != (cfg["warps_per_block"], cfg["threads"], cfg["dynamic_smem_bytes"]):
-                raise RuntimeError(
-                    f"launch configuration disagrees with the kernel: {got} vs {cfg}")
-            _CONFIG_CHECKED.add(lib_def.path)
         if tables[0].shape[1] * 4 != lib.fis_obj_bytes():
             raise RuntimeError(
                 f"object packing disagrees with the kernel: {tables[0].shape[1] * 4}"

@@ -1,21 +1,24 @@
 """Where one env's time goes in kernels B1b / B1c (a warp per env,
-``partmanip_tpu_torch/csrc/fused_inner_step_obj.cu``), and where and when
+``partmanip_tpu_torch/csrc/fused_inner_step_obj.cu``) and B1a (two envs a
+warp, ``partmanip_tpu_torch/csrc/fused_inner_step.cu``), and where and when
 each env's warp ran.
 
 Builds the kernel's ``FIS_PHASES`` library beside the default one (the same
 source with clock reads between the phases of the inner step) and launches
-it through ``sim/fused.launch_packed`` on ``chip_smoke.py``'s 40-step
-expert rollout state, at 2048 envs and at the fewest envs of
+it through ``sim/fused.launch_packed`` on the rollout state of
+``chip_smoke.py``'s path (B1b / B1c: the expert's 40 steps, B1a: 20 steps
+of the random policy), at 2048 envs and at the fewest envs of
 ``chip_smoke.SWEEP_ENVS`` (the state's columns repeated as
 ``chip_smoke.py``'s env sweep makes them), with the main path's inner steps
 per launch.  Prints one JSON line per (kernel, envs): the mean over envs of
 one env's SM clock cycles per phase, and the placement its warps wrote (the
 distinct SMs, the waves — a warp that starts after another has ended is a
-wave later than it — and the most warps running at once), beside the
+wave later than it — and the most warps running at once; B1a's rows are
+envs, two a warp, so there it counts envs), beside the
 occupancy query and the ``ptxas`` lines of both builds, which say whether
 the instrumented build places its blocks as the default one does.
 
-    python3 scripts/prof_torch_fused_phases.py [--kernel b1b b1c]
+    python3 scripts/prof_torch_fused_phases.py [--kernel b1b b1c b1a]
 """
 import argparse
 import ctypes
@@ -28,13 +31,16 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# the phases of the inner step, in the order of the kernel's PHASE(i) marks
+# the phases of the inner step, in the order of the kernel's PHASE(i) marks:
+# B1b / B1c, then B1a
 PHASE_NAMES = ("trees_fk", "robot_mass", "object_mass", "poses_and_spheres",
                "sphere_jacobians_and_pass_a", "pass_b", "jt_n_j", "tree_solves")
+PHASE_NAMES_B1A = ("fk", "mass_matrix", "spheres_and_pass_a", "pass_b", "free_body",
+                   "jt_n_j", "solves")
 
 
 def phases_library(lib):
-    """``lib`` (a B1b / B1c library) built with ``FIS_PHASES``."""
+    """``lib`` (a fused inner-step library) built with ``FIS_PHASES``."""
     from partmanip_tpu_torch.utils import cuda_lib
     sig = dict(lib.signatures, fis_set_phase_buffer=((ctypes.c_void_p,), ctypes.c_int))
     return cuda_lib.Library(lib.name, lib.source,
@@ -57,26 +63,26 @@ def placement(sm, start, end):
 
 
 @torch.no_grad()
-def profile(scene, buf, anc_b, n, lib):
+def profile(scene, buf, anc_b, n, lib, names):
     """One launch of the phase build: {phase: mean cycles} and placement."""
     from partmanip_tpu_torch.sim import fused
     E = buf.shape[1]
-    out = torch.zeros((E, len(PHASE_NAMES) + 3), dtype=torch.int64, device=buf.device)
+    out = torch.zeros((E, len(names) + 3), dtype=torch.int64, device=buf.device)
     err = lib.load().fis_set_phase_buffer(out.data_ptr())
     if err != 0:
         raise RuntimeError(f"fis_set_phase_buffer failed: CUDA error {err}")
     fused.launch_packed(scene, buf, anc_b, n)
     torch.cuda.synchronize()
-    cycles = out[:, :len(PHASE_NAMES)].double().mean(0).tolist()
-    sm, start, end = out[:, len(PHASE_NAMES):].cpu().T.tolist()
-    return {"cycles_per_env_by_phase": dict(zip(PHASE_NAMES, cycles)),
+    cycles = out[:, :len(names)].double().mean(0).tolist()
+    sm, start, end = out[:, len(names):].cpu().T.tolist()
+    return {"cycles_per_env_by_phase": dict(zip(names, cycles)),
             "cycles_per_env": sum(cycles), "placement": placement(sm, start, end)}
 
 
 @torch.no_grad()
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--kernel", nargs="+", default=["b1b", "b1c"], choices=["b1b", "b1c"])
+    ap.add_argument("--kernel", nargs="+", default=["b1b", "b1c"], choices=["b1a", "b1b", "b1c"])
     args = ap.parse_args()
     import chip_smoke
     from partmanip_tpu_torch.sim import fused
@@ -109,8 +115,9 @@ def main():
                 scene_e = chip_smoke.repeat_envs(env.scene, idx)
                 keep.append(scene_e)
                 buf_e, anc_e = buf[:, idx].contiguous(), anc_b[:, idx].contiguous()
-                profile(scene_e, buf_e, anc_e, n, libs[1])          # warm-up
-                row = profile(scene_e, buf_e, anc_e, n, libs[1])
+                names = PHASE_NAMES_B1A if kind == "b1a" else PHASE_NAMES
+                profile(scene_e, buf_e, anc_e, n, libs[1], names)   # warm-up
+                row = profile(scene_e, buf_e, anc_e, n, libs[1], names)
                 print(json.dumps({"kernel": kind, "num_envs": E, "n_steps": n, **row,
                                   "launch_config": fused.launch_config(E, dims),
                                   "blocks_per_sm": {"default": occupancy[0],

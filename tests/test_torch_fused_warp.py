@@ -431,7 +431,7 @@ def test_c_entry_points_and_no_float_atomics():
     assert all(f'#include "{h}"' in src for h in ("fused_warp.cuh", "fused_geom.cuh"))
     assert "spd_solve_warp<D>" in src
     with open(fused.KERNEL_SOURCE) as f:
-        assert "fused_warp.cuh" not in f.read()      # B1a keeps one thread per env
+        assert "fused_warp.cuh" in f.read()          # B1a splits an env over a half-warp
     # the FIS_PHASES build's phases, as scripts/prof_torch_fused_phases.py names them
     script = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "scripts", "prof_torch_fused_phases.py")
@@ -441,7 +441,8 @@ def test_c_entry_points_and_no_float_atomics():
     nphase = len(prof.PHASE_NAMES)
     assert f"#define FIS_NPHASE {nphase}" in src
     assert sorted(map(int, re.findall(r"PHASE\((\d)\)\n", src))) == list(range(nphase))
-    assert "ph_out[FIS_NPHASE + 2] = fis_globaltimer();" in src
+    assert "ph_out[FIS_NPHASE + 2] = fis_globaltimer();" in _source("fused_phases.cuh")
+    assert '#include "fused_phases.cuh"' in src
     for variant, dims in (("b1b", B1B), ("b1c", B1C)):
         sigs = fused.library(variant, dims).signatures
         for name in ("fis_launch_config", "fis_occupancy", "fis_obj_bytes", "fis_launch"):
