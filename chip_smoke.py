@@ -13,10 +13,14 @@ generated and baked into a fresh asset root under ``build/``), and the
 open_drawer point-cloud DAgger student evaluation (kernels B2, the
 sphere-tracing depth camera, and B3, farthest-point sampling, beside B1b's
 physics).  Every phase runs once per path; the mesh-handle path also runs
-``train``, five PPO iterations at the YAML's full width.  Prints one JSON
-object per phase (``device``, ``bake``, ``build``, then ``kernel_check``,
-``small_reference``, ``main_path`` and ``timing`` for each path, ``train``,
-and the vision path's ``step_breakdown``), then the ``kernels`` line, the
+``train``, five PPO iterations at the YAML's full width; the vision path
+also ``dagger_train``, DAgger training of the point-cloud student at full
+width (B1b, B2 and B3 on its collection); then ``dagger_loop``, the DAgger
+loop proof of a normal_state student held against the JAX package's
+recorded run.  Prints one JSON object per phase (``device``, ``bake``,
+``build``, then ``kernel_check``, ``small_reference``, ``main_path`` and
+``timing`` for each path, ``train``, the vision path's ``step_breakdown``
+and ``dagger_train``, ``dagger_loop``), then the ``kernels`` line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}`` as the
 last line.  Any failed phase raises, so the script exits non-zero and prints
 no result line.  ``--only`` runs a subset of the phases (for bringing up a
@@ -1210,9 +1214,208 @@ def vision_step_breakdown(num_envs=VISION_ENVS, reps=10):
     return parts
 
 
+# progress passes 10 (the reward resets' delay) at iterations 11 and 12
+DAGGER_ITERATIONS = 12
+DAGGER_EVAL_AT = 12           # eval_frequence: one evaluation, after the last iteration
+TEACHER_REWARD = os.path.join(ROOT, "artifacts", "open_drawer_ppo", "expert_r3c_seed389",
+                              "teacher_reward.npy")
+
+
+def _median_after_first(logs):
+    return statistics.median(log["Progress/iteration_time"] for log in logs[1:])
+
+
+def vision_dagger_train(reps=3):
+    """DAgger training of the point-cloud student through the CLI entry point
+    at the YAML's full width (16 envs, 3 views of 288×512, 1024 points,
+    PointNet; buf_size 1200 = 19,200 rows, minibatch_size 2048 in chunks of
+    minibatch_cap 256, 2 epochs × 16 minibatches) with the reward-driven
+    reset on: DAGGER_ITERATIONS iterations, one evaluation, a checkpoint at
+    the last; then one more iteration resumed from that checkpoint.  Every
+    render through B2, every FPS through B3, every physics step through B1b
+    (collection, evaluation and resets), none through B1a or B1c; finite
+    ``Train/*`` metrics, a moved student, the buffer's size and the Adam
+    count; the resumed run loads the saved student and Adam state (reloaded
+    after its run and compared with the first run's).  Reports seconds per
+    iteration (median after the first), and, launches no longer counted,
+    one iteration taken apart: ``_collect`` alone and the whole iteration,
+    host clock around synchronised work (median of ``reps``), the update
+    their difference; and the iteration's device time (``torch.profiler``,
+    all kernels).  Returns the first run's launches."""
+    import train_torch
+    from partmanip_tpu_torch.models.actor_critic import ActorCritic
+    from partmanip_tpu_torch.utils import cuda_lib
+    from partmanip_tpu_torch.utils.fetch import fetch_scalars
+    K = DAGGER_ITERATIONS
+    flags = VISION_FLAGS + [
+        "--algo.reward_reset", "--algo.teacher_reward", TEACHER_REWARD,
+        "--algo.eval_round", "1", "--algo.eval_frequence", str(DAGGER_EVAL_AT),
+        "--algo.save_frequence", str(K), "--exp_name", "chip_smoke_dagger_train_seed3",
+        "--log.mode", "screen"]
+    cuda_lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    runner = train_torch.main(flags + ["--algo.max_iterations", str(K)])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = cuda_lib.launch_counts()
+    env, cfg, rig = runner.env, runner.cfg, runner.env.vision_rig
+    T, cfi, E = env.max_episode_length, env.control_freq_inv, env.num_envs
+    n_eval = K // DAGGER_EVAL_AT
+    # init_state's reset; each collection step; each evaluation's reset, its
+    # T steps and the reset after it
+    n_obs = 1 + K * runner.n_steps + n_eval * (1 + T + 1)
+    c2f = rig.coarse_to_fine and rig.im_h % 4 == 0 and rig.im_w % 4 == 0
+    expected = {"b2": n_obs * (2 if c2f else 1), "b3": n_obs,
+                "b1b": 1 + K * runner.n_steps * cfi + n_eval * (2 + T * cfi),
+                "b1a": 0, "b1c": 0}
+    logs = runner.train_logs
+    bad = sorted({k for log in logs for k, v in log.items()
+                  if k.startswith("Train/") and not np.isfinite(v)})
+    fresh = ActorCritic(runner.stu_num_obs, runner.num_actions,
+                        runner.model_cfg).to(runner.device)
+    fresh.init(3)                                    # the seed of the exp_name
+    moved = max(float((p - q).detach().abs().max()) for (n, p), q in zip(
+        runner.student.named_parameters(), fresh.parameters()) if n.startswith("actor."))
+    ts = runner.last_ts
+    cap = ts.buffer.stu_obs.shape[0]
+    mb, chunk, n_chunks = runner.minibatch_sizes(cap)
+    steps_per_iteration = runner.n_updates * runner.num_mini_batches
+    resets = sum(log["Train/dagger_reward_reset_mean"] for log in logs) * runner.n_steps * E
+    width = (E, rig.num_view, rig.im_h, rig.im_w, tuple(ts.stu_obs.shape), cap,
+             cfg["minibatch_size"], cfg["minibatch_cap"], runner.n_updates,
+             runner.num_mini_batches, cfg["model"]["network"]["name"])
+
+    cuda_lib.reset_launch_counts()
+    path = os.path.join(runner.save_ckpt_dir, f"model_{K}.ckpt")
+    resumed = train_torch.main(flags + ["--algo.max_iterations", str(K + 1), "--resume", path])
+    torch.cuda.synchronize()
+    resume_launches = cuda_lib.launch_counts()
+    resume_expected = {"b2": 2 * (2 if c2f else 1), "b3": 2, "b1b": 1 + runner.n_steps * cfi,
+                       "b1a": 0, "b1c": 0}
+    resumed_iter, resumed_count = resumed.curr_iter, resumed.last_ts.opt.count
+    rts = resumed.resume(resumed.last_ts, path)
+    saved, again = runner.last_ts.opt.state_dict(), rts.opt.state_dict()
+    equal = (saved["count"] == again["count"]
+             and all(torch.equal(a, runner.student.state_dict()[k])
+                     for k, a in resumed.student.state_dict().items())
+             and all(torch.equal(again[m][k], v) for m in ("mu", "nu")
+                     for k, v in saved[m].items()))
+
+    collect_s, iteration_s = [], []
+    es = resumed.last_env_state
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rts, es, _ = resumed._collect(rts, es)
+        torch.cuda.synchronize()
+        collect_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        rts, es, m = resumed._dagger_iteration(rts, es, float(resumed._lr_now()))
+        fetch_scalars(m)
+        iteration_s.append(time.perf_counter() - t0)
+    _, device_ms = _device_ms(lambda: fetch_scalars(resumed._dagger_iteration(
+        rts, es, float(resumed._lr_now()))[2]), [], reps=2)
+    breakdown = {"collect_s": statistics.median(collect_s),
+                 "iteration_s": statistics.median(iteration_s),
+                 "iteration_device_s": None if device_ms is None else device_ms / 1e3}
+    breakdown["update_s"] = breakdown["iteration_s"] - breakdown["collect_s"]
+    median = _median_after_first(logs)
+    emit("dagger_train", num_envs=E, width=width, iterations=runner.curr_iter,
+         kernel_launches=launches, expected_launches=expected,
+         resume_kernel_launches=resume_launches, resume_expected_launches=resume_expected,
+         wall_seconds=wall, iteration_seconds=[log["Progress/iteration_time"] for log in logs],
+         seconds_per_iteration_median_after_first=median, breakdown=breakdown,
+         minibatch={"mb": mb, "chunk": chunk, "n_chunks": n_chunks,
+                    "chunk_passes_per_iteration": steps_per_iteration * n_chunks},
+         reward_resets=resets, student_moved=moved, cur_buf_size=ts.buffer.size.item(),
+         adam_count=ts.opt.count, resumed_adam_count=resumed_count, resume_equal=equal,
+         metrics=runner.last_log)
+    print(f"dagger_train: {median:.4f} s per iteration (median of 2-{K}); collect "
+          f"{breakdown['collect_s']:.4f} s, update {breakdown['update_s']:.4f} s; minibatch "
+          f"{mb} = {n_chunks} chunks of {chunk}; {resets:.0f} reward resets", flush=True)
+    if width != (VISION_ENVS, 3, 288, 512, (VISION_ENVS, 3 * K_POINTS), 19200, 2048, 256, 2, 16,
+                 "PointNet") or runner.curr_iter != K:
+        raise RuntimeError(f"dagger_train did not run at full width: {width}")
+    if launches != expected or resume_launches != resume_expected:
+        raise RuntimeError(f"dagger_train launches {launches} (resumed {resume_launches}), "
+                           f"expected {expected} ({resume_expected})")
+    if bad or not logs or not moved > 0:
+        raise RuntimeError(f"dagger_train: non-finite {bad}, student moved {moved}")
+    if (ts.buffer.size.item() != min(K * runner.n_steps * E, cap)
+            or ts.opt.count != K * steps_per_iteration):
+        raise RuntimeError(f"dagger_train: buffer size {ts.buffer.size.item()}, Adam count "
+                           f"{ts.opt.count}")
+    if not (equal and resumed_iter == K + 1 and len(resumed.train_logs) == 1
+            and resumed_count == (K + 1) * steps_per_iteration):
+        raise RuntimeError(f"dagger_train: the resumed run did not continue from the "
+                           f"checkpoint (equal {equal}, iteration {resumed_iter}, "
+                           f"Adam count {resumed_count})")
+    return launches
+
+
+LOOP_TEACHER = os.path.join(ROOT, "artifacts", "open_drawer_ppo", "expert_r3c_seed389",
+                            "model_16000.ckpt")
+LOOP_RECORD = os.path.join(ROOT, "tests", "golden_torch", "dagger_loop_record.json")
+LOOP_ITERATIONS = 50          # the record ran 1000: a depth cut
+LOOP_SHOWN = (1, 2, 5, 10, 20, 50)
+
+
+def dagger_loop():
+    """The DAgger loop proof through the CLI entry point: the normal_state
+    MLP student of the JAX package's run ``ceiling_r3_seed17``
+    (``scripts/pipeline_r3.sh:72-80``: open_drawer, 1024 envs, buf_size 64,
+    minibatch_cap 2048, teacher ``model_16000.ckpt``, seed 17) for
+    LOOP_ITERATIONS iterations.  Its ``Train/dagger_loss`` beside the
+    record's (``tests/golden_torch/dagger_loop_record.json``); the two RNG
+    streams differ, so the gate is on the curve's shape: iteration 1 within
+    [0.25, 0.75], the mean over iterations 41-50 at most 0.12 and at most a
+    quarter of iteration 1's.  Every physics step through B1b."""
+    import train_torch
+    from partmanip_tpu_torch.utils import cuda_lib
+    with open(LOOP_RECORD) as f:
+        record = json.load(f)
+    cuda_lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    runner = train_torch.main([
+        "--taskcfg", "open_drawer", "--algocfg", "dagger", "--algo.obs_mode", "normal_state",
+        "--algo.model.network.name", "MLP", "--algo.num_envs", "1024", "--algo.buf_size", "64",
+        "--algo.minibatch_cap", "2048", "--algo.max_iterations", str(LOOP_ITERATIONS),
+        "--algo.teacher", LOOP_TEACHER, "--exp_name", "chip_smoke_dagger_loop_seed17",
+        "--log.mode", "screen"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = cuda_lib.launch_counts()
+    env = runner.env
+    expected = {"b1b": 1 + LOOP_ITERATIONS * runner.n_steps * env.control_freq_inv,
+                "b1a": 0, "b1c": 0, "b2": 0, "b3": 0}
+    loss = [log["Train/dagger_loss"] for log in runner.train_logs]
+    want = [record["dagger_loss"][str(i)] for i in range(1, LOOP_ITERATIONS + 1)]
+    tail, want_tail = float(np.mean(loss[40:50])), float(np.mean(want[40:50]))
+    median = _median_after_first(runner.train_logs)
+    emit("dagger_loop", num_envs=env.num_envs, iterations=runner.curr_iter,
+         record=record["run"], kernel_launches=launches, expected_launches=expected,
+         dagger_loss=loss, record_dagger_loss=want,
+         mean_41_50=tail, record_mean_41_50=want_tail, wall_seconds=wall,
+         seconds_per_iteration_median_after_first=median, metrics=runner.last_log)
+    for i in LOOP_SHOWN:
+        print(f"dagger_loop: iteration {i:3d}  Train/dagger_loss {loss[i - 1]:.4f}  "
+              f"(record {want[i - 1]:.4f})", flush=True)
+    print(f"dagger_loop: mean of 41-50 {tail:.4f} (record {want_tail:.4f})", flush=True)
+    if runner.curr_iter != LOOP_ITERATIONS or env.num_envs != 1024 or launches != expected:
+        raise RuntimeError(f"dagger_loop: {runner.curr_iter} iterations at {env.num_envs} "
+                           f"envs, launches {launches}, expected {expected}")
+    if not (0.25 <= loss[0] <= 0.75 and tail <= 0.12 and tail <= loss[0] / 4):
+        raise RuntimeError(f"dagger_loop: Train/dagger_loss {loss[0]:.4f} at iteration 1, "
+                           f"{tail:.4f} over 41-50: the student does not learn as the "
+                           f"record's did ({want[0]:.4f}, {want_tail:.4f})")
+    return launches
+
+
 def run_vision_path(phases, ptxas):
     """Every phase of the vision path; returns its two entries of the
-    ``kernels`` line."""
+    ``kernels`` line and the launches of DAgger training (or None)."""
     from partmanip_tpu_torch.config import process_cfgs
     from partmanip_tpu_torch.envs import vision
     cfg, _ = process_cfgs(VISION_FLAGS)
@@ -1228,12 +1431,15 @@ def run_vision_path(phases, ptxas):
     if "timing" in phases:
         timing["b2"], timing["b3"] = vision_timing(rig, cases["rollout40"])
         vision_step_breakdown()
+    train = vision_dagger_train() if "dagger_train" in phases else {}
     return [{**VISION_KERNELS[k], "route": "cuda", "launches": launches.get(k),
-             "max_abs_err": worst.get(k), "ptxas": ptxas[k], **timing[k]}
-            for k in ("b2", "b3")]
+             "launches_dagger_train": train.get(k), "max_abs_err": worst.get(k),
+             "ptxas": ptxas[k], **timing[k]}
+            for k in ("b2", "b3")], train
 
 
-PHASES = ("kernel_check", "small_reference", "main_path", "timing", "train")
+PHASES = ("kernel_check", "small_reference", "main_path", "timing", "train",
+          "dagger_train", "dagger_loop")
 
 
 def make_envs():
@@ -1289,7 +1495,11 @@ def main(argv=None):
                         "replaces_function": path.replaces_function,
                         "launches": launches, "max_abs_err": worst,
                         "ptxas": ptxas[path.kernel], **timing})
-    kernels += run_vision_path(args.only, ptxas)
+    vision_kernels, train = run_vision_path(args.only, ptxas)
+    loop = dagger_loop() if "dagger_loop" in args.only else {}
+    next(k for k in kernels if k["name"] == "fused_inner_step_b1b").update(
+        launches_dagger_train=train.get("b1b"), launches_dagger_loop=loop.get("b1b"))
+    kernels += vision_kernels
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -60,7 +60,10 @@ class Adam:
     arithmetic: g ← g if ‖g‖ < max_norm else g/‖g‖·max_norm over all
     parameters; μ ← (1−β₁)g + β₁μ, ν ← (1−β₂)g² + β₂ν, count ← count + 1;
     p ← p + (μ/(1−β₁ᶜᵒᵘⁿᵗ)) / (√(ν/(1−β₂ᶜᵒᵘⁿᵗ)) + ε) · (−lr).  A step that
-    is not taken leaves every moment and the count as they were."""
+    is not taken leaves every moment and the count as they were.  A
+    parameter the loss does not reach (``.grad`` None, e.g. the DAgger
+    student's critic) steps with a zero gradient, as optax updates the whole
+    parameter tree: its moments decay, it does not move."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8        # optax.adam's defaults, as the JAX package uses
 
@@ -75,7 +78,7 @@ class Adam:
     @torch.no_grad()
     def step(self, lr: float) -> None:
         """Apply one update from the parameters' ``.grad``."""
-        grads = [p.grad for p in self.params]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
         if self.max_norm is not None:
             g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
             keep = g_norm < self.max_norm

@@ -7,10 +7,9 @@ Counterpart of ``partmanip_tpu/algos/storage.py``:
   ``next_is_not_terminal`` — the post-reset transition carries no gradient —
   and returns are pinned to ``succ_value`` on success steps;
 * minibatching: sequential or random permutation of the flattened [T·E]
-  buffer, minibatch size min(total // n_minibatches, 2048), drop-last.
-
-``buffer_minibatch_indices`` (the DAgger ring buffer) is not ported yet
-(ROADMAP Queue A: BC / DAgger training).
+  buffer, minibatch size min(total // n_minibatches, 2048), drop-last;
+* the DAgger ring buffer's minibatches: a fresh shuffle of its valid rows
+  per epoch (:func:`buffer_minibatch_indices`).
 """
 
 from __future__ import annotations
@@ -81,3 +80,22 @@ def minibatch_indices(generator: torch.Generator, total: int,
                  [: n * mb].to(dev) for _ in range(n_epochs)]
         return torch.stack(perms).reshape(n_epochs * n, mb)
     raise NotImplementedError(sampler)
+
+
+def buffer_minibatch_indices(generator: torch.Generator, cap: int, size,
+                             n_epochs: int, n_batches: int, mb: int) -> torch.Tensor:
+    """Without-replacement minibatch indices over the first ``size`` valid
+    rows of a [cap]-row ring buffer, a fresh shuffle per epoch drawn from
+    ``generator``: each epoch sorts the valid rows to the front in random
+    order, and batch positions wrap mod ``max(size, 1)`` only when an epoch
+    needs more rows than are valid.  ``size`` may be a device scalar (no
+    host sync).
+
+    Returns int64 [n_epochs·n_batches, mb] on the generator's device."""
+    dev = generator.device
+    key = torch.rand((n_epochs, cap), generator=generator, device=dev)
+    size = torch.as_tensor(size, device=dev)
+    key = key + (torch.arange(cap, device=dev) >= size) * 10.0   # valid rows first
+    perms = torch.argsort(key, dim=1)
+    pos = torch.arange(n_batches * mb, device=dev) % torch.clamp(size, min=1)
+    return perms[:, pos].reshape(n_epochs * n_batches, mb)

@@ -89,7 +89,7 @@ def process_cfgs(argv=None, cfg_root: str = None):
         if not os.path.exists(pjoin(cfg_root, kind, f"{name}.yaml")):
             raise NotImplementedError(
                 f"config {kind}/{name}.yaml is not ported yet (see ROADMAP "
-                f"Queue A: BC / DAgger training)")
+                f"Queue A: BC training and demo collection)")
 
     with open(pjoin(cfg_root, "base.yaml")) as f:
         cfg = yaml.safe_load(f)

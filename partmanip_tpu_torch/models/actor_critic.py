@@ -86,6 +86,11 @@ class ActorCritic(nn.Module):
         """Deterministic activated action (eval path)."""
         return self.activate(self.actor(obs))
 
+    def update_act(self, obs):
+        """Differentiable activated mean (the BC / DAgger loss path; the
+        MLP's compute dtype applies under autograd too)."""
+        return self.activate(self.actor(obs))
+
     def act_cri(self, obs):
         return self.activate(self.actor(obs)), self.critic(obs)
 

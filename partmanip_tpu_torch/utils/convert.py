@@ -8,9 +8,11 @@ without importing JAX):
   a ``state_dict`` for :class:`models.actor_critic.ActorCritic`, for either
   network kind (``MLP``; ``PointNet``, whose flax layers ``Dense_0..Dense_5``
   are the three per-point layers, the two after the pool and the head);
-* :func:`adam_state_from_jax` — the Adam state of a JAX optimizer (actor
-  part or critic) → the port's ``{"count", "mu", "nu"}`` keyed by parameter
-  name;
+* :func:`adam_state_from_jax` — the Adam state of a JAX optimizer (PPO's
+  actor part or critic, or DAgger's whole student) → the port's
+  ``{"count", "mu", "nu"}`` keyed by parameter name;
+  :func:`actor_critic_to_jax` / :func:`adam_state_to_jax` — the inverses
+  (numpy trees in the flax layout);
 * :func:`rms_from_jax` — ``{"n", "mean", "S"}`` → ``RMSState``;
 * :func:`scene_state_from_numpy` / :func:`env_state_from_numpy` (and their
   ``*_to_numpy`` inverses) — states given as ``[E, ...]`` numpy arrays (the
@@ -66,24 +68,58 @@ def actor_critic_from_jax(np_tree: dict, network: str = "MLP") -> Dict[str, torc
     return sd
 
 
+def actor_critic_to_jax(sd: Dict[str, torch.Tensor], network: str = "MLP") -> dict:
+    """The inverse of :func:`actor_critic_from_jax`: a state dict (or
+    moments keyed alike) → ``{"actor": {"params": {"Dense_i": {"kernel",
+    "bias"}}}, "critic": ..., "log_std"}`` with numpy leaves."""
+    def tree(prefix):
+        layers = sorted({k[len(prefix) + 1:].rsplit(".", 1)[0] for k in sd
+                         if k.startswith(prefix + ".")})
+        if network == "MLP":
+            order = sorted((n for n in layers if n != "head"),
+                           key=lambda n: int(n.split(".")[1])) + ["head"]
+        elif network == "PointNet":
+            order = ["point.0", "point.1", "point.2", "hidden.0", "hidden.1", "head"]
+        else:
+            raise NotImplementedError(f"no converter for network {network!r}")
+        np_ = lambda t: t.detach().cpu().numpy().astype(np.float32)
+        return {"params": {f"Dense_{i}": {
+            "kernel": np.ascontiguousarray(np_(sd[f"{prefix}.{n}.weight"]).T),
+            "bias": np_(sd[f"{prefix}.{n}.bias"])} for i, n in enumerate(order)}}
+    return {"actor": tree("actor"), "critic": tree("critic"),
+            "log_std": sd["log_std"].detach().cpu().numpy().astype(np.float32)}
+
+
+def adam_state_to_jax(state: dict, network: str = "MLP") -> dict:
+    """The port's Adam state over a whole ``ActorCritic`` (DAgger's student)
+    → ``{"count", "mu", "nu"}`` with the moments as numpy trees in the layout
+    of the JAX package's ``ACParams``."""
+    return {"count": int(state["count"]),
+            "mu": actor_critic_to_jax(state["mu"], network),
+            "nu": actor_critic_to_jax(state["nu"], network)}
+
+
 def adam_state_from_jax(opt_state, part: str, network: str = "MLP") -> dict:
     """The Adam moments and step count of a JAX optimizer state (read by
     ``checkpoint.load_jax``) as the port's optimizer state: ``{"count": int,
     "mu": {name: tensor}, "nu": {...}}`` with the names of
-    ``ActorCritic.named_parameters()``.  ``part`` is ``"actor"`` (the actor
-    network and ``log_std``, one optimizer in both packages) or
-    ``"critic"``."""
+    ``ActorCritic.named_parameters()``.  ``part`` is ``"actor"`` (PPO: the
+    actor network and ``log_std``, one optimizer in both packages),
+    ``"critic"`` (PPO) or ``"student"`` (DAgger: one optimizer over the
+    whole ``ACParams``)."""
     from . import checkpoint
     adam = checkpoint.jax_adam_state(opt_state)
 
     def moments(tree):
+        if part == "student":
+            return actor_critic_from_jax(tree._asdict(), network)
         if part == "actor":
             out = _dense_from_flax(tree["actor"], "actor", network)
             out["log_std"] = torch.from_numpy(np.array(tree["log_std"], np.float32))
             return out
         if part == "critic":
             return _dense_from_flax(tree, "critic", network)
-        raise ValueError(f"part must be 'actor' or 'critic', got {part!r}")
+        raise ValueError(f"part must be 'actor', 'critic' or 'student', got {part!r}")
     return {"count": int(adam.count), "mu": moments(adam.mu), "nu": moments(adam.nu)}
 
 

@@ -77,9 +77,8 @@ TEACHER = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 
 
 @pytest.mark.parametrize("extra,roadmap_item", [
-    (("--taskcfg", "open_drawer", "--algocfg", "dagger", "--algo.obs_mode", "depth_pc",
-      "--algo.model.network.name", "PointNet", "--algo.teacher", TEACHER,
-      "--task.asset.assetRoot", "{tmp}"), "BC / DAgger training"),
+    (("--taskcfg", "open_drawer", "--algocfg", "dagger", "--algo.teacher", TEACHER,
+      "--task.asset.assetRoot", "{tmp}"), "remaining vision modes"),
     (("--test_only", "--algo.obs_mode", "depth_pc"), "renderer"),
     (("--test_only", "--save_pose"), "tooling"),
     (("--test_only", "--save_video"), "renderer"),

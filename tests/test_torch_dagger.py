@@ -148,7 +148,7 @@ def test_teacher_and_student_checkpoints(drawer_dagger):
 
 
 @pytest.mark.parametrize("extra,roadmap_item", [
-    (["--algocfg", "bc"], "BC / DAgger training"),
+    (["--algocfg", "bc"], "BC training and demo collection"),
     (["--algocfg", "dagger", "--taskcfg", "open_drawer", "--algo.obs_mode", "depth_tsdf"],
      "remaining vision modes"),
     (["--algocfg", "dagger", "--taskcfg", "open_drawer", "--algo.obs_mode", "depth_pc",

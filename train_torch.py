@@ -10,6 +10,10 @@ Usage:
     python train_torch.py --taskcfg open_drawer --algocfg dagger --test_only \
         --algo.obs_mode depth_pc --algo.model.network.name PointNet \
         --algo.teacher artifacts/open_drawer_ppo/expert_r3c_seed389/model_30000.ckpt
+    python train_torch.py --taskcfg open_drawer --algocfg dagger \
+        --algo.obs_mode depth_pc --algo.model.network.name PointNet \
+        --algo.teacher artifacts/open_drawer_ppo/expert_r3c_seed389/model_30000.ckpt
+                                                      # DAgger training
 Every YAML key is exposed as a dotted CLI flag (see
 partmanip_tpu_torch/config.py).  Runs on the GPU; ``--device cpu`` runs the
 plain PyTorch path on the CPU instead.  ``--im_scale N`` divides the
@@ -67,8 +71,8 @@ def make_runner(env, cfg, logger):
         from partmanip_tpu_torch.algos.dagger import DAgger
         return DAgger(env, cfg["algo"], logger)
     raise NotImplementedError(
-        f"algo {name!r} is not ported yet (ROADMAP Queue A: BC / DAgger "
-        f"training)")
+        f"algo {name!r} is not ported yet (ROADMAP Queue A: BC training and "
+        f"demo collection)")
 
 
 def main(argv=None):
