@@ -1225,6 +1225,49 @@ def _median_after_first(logs):
     return statistics.median(log["Progress/iteration_time"] for log in logs[1:])
 
 
+def _top_kernels(fn, n=6):
+    """The ``n`` device kernels that take most of one call of ``fn``
+    (``torch.profiler``): [(name, ms, calls)]."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ks.sort(key=lambda e: -(getattr(e, "device_time_total", 0) or 0))
+    return [(e.key[:120], (e.device_time_total or 0) / 1e3, e.count) for e in ks[:n]]
+
+
+def _iteration_split(runner, reps=3):
+    """``_collect`` alone and the whole DAgger iteration (host clock around
+    synchronised work, median of ``reps``), the update their difference,
+    the iteration's device time and idle share (``torch.profiler``) and its
+    top device kernels, continuing from the runner's last state."""
+    from partmanip_tpu_torch.utils.fetch import fetch_scalars
+    ts, es = runner.last_ts, runner.last_env_state
+    collect_s, iteration_s = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, es, _ = runner._collect(ts, es)
+        torch.cuda.synchronize()
+        collect_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ts, es, m = runner._dagger_iteration(ts, es, float(runner._lr_now()))
+        fetch_scalars(m)
+        iteration_s.append(time.perf_counter() - t0)
+    _, device_ms = _device_ms(lambda: fetch_scalars(runner._dagger_iteration(
+        ts, es, float(runner._lr_now()))[2]), [], reps=2)
+    out = {"collect_s": statistics.median(collect_s),
+           "iteration_s": statistics.median(iteration_s),
+           "iteration_device_s": None if device_ms is None else device_ms / 1e3}
+    out["update_s"] = out["iteration_s"] - out["collect_s"]
+    if out["iteration_device_s"] is not None:
+        out["device_idle_share"] = 1.0 - out["iteration_device_s"] / out["iteration_s"]
+    out["top_kernels_ms"] = _top_kernels(lambda: fetch_scalars(runner._dagger_iteration(
+        ts, es, float(runner._lr_now()))[2]))
+    return out
+
+
 def vision_dagger_train(reps=3):
     """DAgger training of the point-cloud student through the CLI entry point
     at the YAML's full width (16 envs, 3 views of 288×512, 1024 points,
@@ -1245,7 +1288,6 @@ def vision_dagger_train(reps=3):
     import train_torch
     from partmanip_tpu_torch.models.actor_critic import ActorCritic
     from partmanip_tpu_torch.utils import cuda_lib
-    from partmanip_tpu_torch.utils.fetch import fetch_scalars
     K = DAGGER_ITERATIONS
     flags = VISION_FLAGS + [
         "--algo.reward_reset", "--algo.teacher_reward", TEACHER_REWARD,
@@ -1302,24 +1344,7 @@ def vision_dagger_train(reps=3):
              and all(torch.equal(again[m][k], v) for m in ("mu", "nu")
                      for k, v in saved[m].items()))
 
-    collect_s, iteration_s = [], []
-    es = resumed.last_env_state
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rts, es, _ = resumed._collect(rts, es)
-        torch.cuda.synchronize()
-        collect_s.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        rts, es, m = resumed._dagger_iteration(rts, es, float(resumed._lr_now()))
-        fetch_scalars(m)
-        iteration_s.append(time.perf_counter() - t0)
-    _, device_ms = _device_ms(lambda: fetch_scalars(resumed._dagger_iteration(
-        rts, es, float(resumed._lr_now()))[2]), [], reps=2)
-    breakdown = {"collect_s": statistics.median(collect_s),
-                 "iteration_s": statistics.median(iteration_s),
-                 "iteration_device_s": None if device_ms is None else device_ms / 1e3}
-    breakdown["update_s"] = breakdown["iteration_s"] - breakdown["collect_s"]
+    breakdown = _iteration_split(resumed, reps)
     median = _median_after_first(logs)
     emit("dagger_train", num_envs=E, width=width, iterations=runner.curr_iter,
          kernel_launches=launches, expected_launches=expected,
@@ -1413,6 +1438,372 @@ def dagger_loop():
     return launches
 
 
+# ----------------------------------------------------------------------
+# the TSDF student: demos → BC → DAgger, at the YAMLs' own defaults
+# ----------------------------------------------------------------------
+
+TSDF_DEMOS = os.path.join(ROOT, "build", "chip_smoke_tsdf_demos")
+DEMO_RES, DEMO_T = 50, 200    # open_drawer.yaml: tsdf resolution, maxEpisodeLength
+BC_ITERATIONS = 7             # bc.yaml runs 1000: the fewest that pass the loss gates
+TSDF_DAGGER_ITERATIONS = 10   # dagger.yaml runs 10000
+DEPTH_DAGGER_ITERATIONS = 3
+CONV_TOL = 1e-4               # card vs CPU, relative to the largest magnitude; TF32 must fail it
+TSDF_TOL = 1e-6               # integrate(B2 depth) vs integrate(plain depth)
+
+
+def conv3d_macs(res=50, layers=((16, 5, 3), (32, 3, 3), (32, 3, 2)), hidden=256, out=10):
+    """Multiply-adds of one Conv3DNet forward, per layer, counted from its
+    shapes: output voxels × output channels × kernel volume × input
+    channels, then the dense layer and the head."""
+    macs, c, side = {}, 1, res
+    for i, (f, k, s) in enumerate(layers):
+        side = (side + 2 * (k // 2) - k) // s + 1
+        macs[f"conv{i + 1}"] = side ** 3 * f * k ** 3 * c
+        c = f
+    macs["dense"] = c * side ** 3 * hidden
+    macs["head"] = hidden * out
+    return macs
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def check_demo_tree(path, res, num_actions, tea_obs, proprio):
+    """The written tree's layout, checked file by file: keys, shapes, the
+    volume in [-1, 1] with both signs over the tree, bf16-representable
+    values.  Returns (rows, scenes, the demo actions [n, A])."""
+    scenes = sorted(os.listdir(path)) if os.path.isdir(path) else []
+    acts, neg, pos, bad = [], False, False, []
+    for scene in scenes:
+        for step in sorted(os.listdir(os.path.join(path, scene))):
+            d = np.load(os.path.join(path, scene, step), allow_pickle=True).item()
+            v = d["tsdf"]
+            shapes = {k: np.shape(x) for k, x in d.items()}
+            if (set(d) != {"tsdf", "action", "tea_obs", "proprio_state"}
+                    or shapes != {"tsdf": (res,) * 3, "action": (num_actions,),
+                                  "tea_obs": (tea_obs,), "proprio_state": (proprio,)}
+                    or v.dtype != np.float32 or not (np.abs(v) <= 1.0).all()
+                    or not np.array_equal(torch.from_numpy(v).bfloat16().float().numpy(), v)):
+                bad.append(f"{scene}/{step}: {shapes}")
+            neg, pos = neg or bool((v < 0).any()), pos or bool((v > 0).any())
+            acts.append(d["action"])
+    if bad or not (neg and pos) or not acts:
+        raise RuntimeError(f"tsdf_student demos: {len(bad)} bad files {bad[:3]}, both "
+                           f"signs {neg and pos}, rows {len(acts)}")
+    return len(acts), len(scenes), np.stack(acts)
+
+
+@torch.no_grad()
+def tsdf_integrate_check(cases):
+    """TSDF fusion of B2's depth against fusion of the plain march's depth on
+    the vision cases (exact and coarse-to-fine, culled): the max abs TSDF
+    difference and the voxels whose validity (seen by a view) differs."""
+    from partmanip_tpu_torch.config import process_cfgs
+    from partmanip_tpu_torch.envs import vision
+    from partmanip_tpu_torch.ops import raymarch, raymarch_cuda, tsdf
+    cfg, _ = process_cfgs(VISION_FLAGS)
+    rig = vision.VisionRig(cfg["task"]["cam"], cfg["task"]["obs_mode"]["tsdf"], "depth_tsdf")
+    spec = rig.tsdf_spec
+
+    def seen(depth):
+        E, V = depth.shape[:2]
+        lin = torch.as_tensor(spec.pix_y.astype(np.int64) * spec.im_w + spec.pix_x,
+                              device=depth.device)[None].expand(E, -1, -1)
+        dv = torch.gather(depth.reshape(E, V, -1), 2, lin)
+        diff = dv - torch.as_tensor(spec.pix_z, device=depth.device)[None]
+        valid = (torch.as_tensor(spec.valid, device=depth.device)[None] & (dv > 0)
+                 & (diff >= -spec.sdf_trunc))
+        return valid.any(dim=1)
+
+    out = {}
+    for name, prims in cases.items():
+        for c2f in (False, True):
+            args = (prims, rig.poses, rig.intrinsic, rig.im_h, rig.im_w)
+            got = raymarch_cuda.render_with(raymarch_cuda.march, *args, coarse_to_fine=c2f)
+            want = raymarch_cuda.render_with(raymarch.march_plain, *args, coarse_to_fine=c2f)
+            a, b = tsdf.integrate(spec, got), tsdf.integrate(spec, want)
+            out[f"{name}_{'c2f' if c2f else 'exact'}"] = {
+                "max_abs_err": float((a - b).abs().max()),
+                "validity_flips": int((seen(got) != seen(want)).sum()),
+                "seen_share": float(seen(want).float().mean()),
+                "finite": bool(torch.isfinite(a).all())}
+    return out
+
+
+def conv3d_card_vs_cpu(rows, model_cfg):
+    """A seeded Conv3DNet actor's forward and weight gradients on the card
+    against the CPU's on the same real rows: the largest difference of each,
+    relative to the largest magnitude, with cuDNN's TF32 off as the port's
+    entry points set it; then the same card network with TF32 on, the
+    control: the check's own comparison must fail it, or the check could not
+    tell TF32 from f32.  cuDNN's flag is restored afterwards."""
+    from partmanip_tpu_torch.models.actor_critic import ActorCritic
+    net = ActorCritic(rows.shape[1], 10, model_cfg)
+    net.init(5)
+    card = ActorCritic(rows.shape[1], 10, model_cfg).to("cuda")
+    card.load_state_dict(net.state_dict())
+    names = ["forward"] + [n for n, _ in net.actor.named_parameters()]
+
+    def run(n):
+        n.zero_grad(set_to_none=True)
+        dev = next(n.parameters()).device
+        y = n.actor(rows.to(dev))
+        (y * torch.linspace(-1, 1, y.numel(), device=dev).reshape(y.shape)).sum().backward()
+        return [y.detach().cpu()] + [p.grad.cpu() for _, p in n.actor.named_parameters()]
+
+    ref = run(net)
+    rel = lambda got: {n: float((g - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                       for n, g, r in zip(names, got, ref)}
+    was = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        f32 = rel(run(card))
+        torch.backends.cudnn.allow_tf32 = True
+        tf32 = rel(run(card))
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    return {"rows": rows.shape[0], "rel_err_f32": f32, "worst_f32": max(f32.values()),
+            "rel_err_tf32_control": tf32, "worst_tf32_control": max(tf32.values()),
+            "tolerance": CONV_TOL,
+            "cudnn": {"version": torch.backends.cudnn.version(), "allow_tf32_restored": was,
+                      "benchmark": torch.backends.cudnn.benchmark}}
+
+
+def tsdf_step_breakdown(runner, reps=10):
+    """One DAgger evaluation step of the runner's student taken apart (host
+    clock, each part ending in a synchronise): physics and state
+    observation, scene primitives (FK), then for mesh_tsdf the grid query,
+    for depth_tsdf the coarse-to-fine render (B2) and the fusion; the
+    Conv3DNet student."""
+    from partmanip_tpu_torch.envs import vision
+    from partmanip_tpu_torch.ops import tsdf
+    env, rig = runner.env, runner.env.vision_rig
+    with torch.no_grad():
+        state, obs = env.reset(env.init_state(env.make_generator(4)))
+        o = obs[rig.mode]
+        act = runner.student.act(o)
+        step_ms = _host_ms(lambda: env.step(state, act, train=False), reps)
+        env.vision_rig = None
+        physics_ms = _host_ms(lambda: env.step(state, act, train=False), reps)
+        env.vision_rig = rig
+        prims = vision.scene_prims(env, state.sim)
+        parts = {"physics_and_state_obs_ms": physics_ms,
+                 "scene_prims_ms": _host_ms(lambda: vision.scene_prims(env, state.sim), reps)}
+        if rig.mode == "mesh_tsdf":
+            parts["mesh_tsdf_query_ms"] = _host_ms(lambda: vision.mesh_tsdf(rig, prims), reps)
+        else:
+            depth = vision.render_depth(rig, prims)
+            parts["render_b2_ms"] = _host_ms(lambda: vision.render_depth(rig, prims), reps)
+            parts["integrate_ms"] = _host_ms(lambda: tsdf.integrate(rig.tsdf_spec, depth), reps)
+        parts["conv3dnet_ms"] = _host_ms(lambda: runner.student.act(o), reps)
+    return {"env_step_ms": step_ms, "parts": parts, "parts_sum_ms": sum(parts.values())}
+
+
+def _tsdf_dagger(mode, iterations, extra, launches_total):
+    """One DAgger run of the TSDF student through the CLI entry point at
+    dagger.yaml's defaults (with ``--algo.obs_mode mode``), one evaluation
+    after the last iteration; its launches, checked exactly (B1b for every
+    physics step, B2 twice for every depth_tsdf observation, no B3)."""
+    import train_torch
+    from partmanip_tpu_torch.utils import cuda_lib
+    K = iterations
+    cuda_lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    runner = train_torch.main([
+        "--taskcfg", "open_drawer", "--algocfg", "dagger", "--algo.obs_mode", mode,
+        "--algo.teacher", DRAWER_CKPT, "--algo.max_iterations", str(K),
+        "--algo.eval_round", "1", "--algo.eval_frequence", str(K),
+        "--exp_name", f"chip_smoke_{mode}_student_seed23", "--log.mode", "screen", *extra])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = cuda_lib.launch_counts()
+    for k, v in launches.items():
+        launches_total[k] = launches_total.get(k, 0) + v
+    env, rig = runner.env, runner.env.vision_rig
+    T, cfi = env.max_episode_length, env.control_freq_inv
+    n_obs = 1 + K * runner.n_steps + (1 + T + 1)
+    b1b = f"1 + K·n_steps·cfi + (2 + T·cfi) = 1 + {K}·{runner.n_steps}·{cfi} + (2 + {T}·{cfi})"
+    expected = {"b1b": 1 + K * runner.n_steps * cfi + 2 + T * cfi, "b1a": 0, "b1c": 0,
+                "b3": 0, "b2": n_obs * 2 if mode == "depth_tsdf" else 0}
+    formula = {"b1b": b1b, "b2": "2 · (1 + K·n_steps + 1 + T + 1)" if mode == "depth_tsdf"
+               else "0 (no render)", "b3": "0"}
+    logs = runner.train_logs
+    # the last log holds the evaluation's Val/* metrics too
+    bad = sorted({k for log in logs for k, v in log.items()
+                  if k.startswith(("Train/", "Val/")) and not np.isfinite(v)})
+    ts = runner.last_ts
+    cap = ts.buffer.stu_obs.shape[0]
+    mb, chunk, n_chunks = runner.minibatch_sizes(cap)
+    width = (env.num_envs, tuple(ts.stu_obs.shape), str(ts.buffer.stu_obs.dtype), cap,
+             mb, chunk, runner.n_updates, runner.num_mini_batches,
+             runner.model_cfg["network"]["name"], rig.mode, rig.tsdf_spec.resolution,
+             rig.im_h, rig.im_w, rig.coarse_to_fine)
+    return runner, {
+        "obs_mode": mode, "iterations": runner.curr_iter, "width": width,
+        "kernel_launches": launches, "expected_launches": expected,
+        "launch_formula": formula, "wall_seconds": wall,
+        "iteration_seconds": [log["Progress/iteration_time"] for log in logs],
+        "seconds_per_iteration_median_after_first": _median_after_first(logs),
+        "dagger_loss": [log["Train/dagger_loss"] for log in logs],
+        "cur_buf_size": ts.buffer.size.item(), "buffer_gb": ts.buffer.stu_obs.numel() * 2 / 1e9,
+        "non_finite": bad, "eval": {k: v for k, v in runner.last_log.items()
+                                    if k.startswith("Val/") and ("succ" in k or "reward" in k)}}
+
+
+def tsdf_student():
+    """The TSDF student at the YAMLs' own defaults through the entry points:
+    mesh_tsdf demos of the committed expert (collect_demos_torch.py, one
+    episode at 16 envs, only the successful envs), BC of a Conv3DNet on them
+    (train_torch.py --algocfg bc, bc.yaml's 50 minibatches, lr 5e-4,
+    step_decay; BC_ITERATIONS iterations), DAgger from that checkpoint with
+    the demos ingested offline (dagger.yaml as it is: 16 envs, buf_size 1200,
+    minibatch 2048 in chunks of 256, 2 × 16 Adam steps; 10 iterations and
+    one evaluation), then the depth_tsdf student (3 iterations, one
+    evaluation) through B2; TSDF fusion of B2's depth held against fusion
+    of the plain march's, Conv3DNet on the card against the CPU.  Returns
+    the phase's launches per kernel."""
+    import collect_demos_torch
+    import train_torch
+    from partmanip_tpu_torch.envs import vision
+    from partmanip_tpu_torch.utils import checkpoint as ckpt_lib
+    from partmanip_tpu_torch.utils import cuda_lib
+    launches_total = {}
+    shutil.rmtree(TSDF_DEMOS, ignore_errors=True)
+    try:
+        # 1. demos
+        cuda_lib.reset_launch_counts()
+        summary = collect_demos_torch.main([
+            "--teacher", DRAWER_CKPT, "--out", TSDF_DEMOS, "--episodes", "1", "--only_success",
+            "--taskcfg", "open_drawer", "--algo.num_envs", str(VISION_ENVS)])
+        torch.cuda.synchronize()
+        collect_launches = cuda_lib.launch_counts()
+        for k, v in collect_launches.items():
+            launches_total[k] = launches_total.get(k, 0) + v
+        gb = _dir_bytes(TSDF_DEMOS) / 1e9
+        rows, scenes, acts = check_demo_tree(TSDF_DEMOS, DEMO_RES, 10, 53, 0)
+        const_loss = float(acts.var(axis=0).mean())
+        T = DEMO_T
+        demos = {"rows": rows, "scenes": scenes, "seconds": summary["seconds"], "gb_written": gb,
+                 "kernel_launches": collect_launches,
+                 "expected_launches": {"b1b": 1 + 2 * T, "b1a": 0, "b1c": 0, "b2": 0, "b3": 0},
+                 "layout": {"tsdf": [DEMO_RES] * 3, "action": 10, "tea_obs": 53,
+                            "proprio_state": 0, "tsdf_bf16_rounded": True},
+                 "constant_predictor_loss": const_loss}
+        print(f"tsdf_student demos: {rows} rows ({scenes} of 16 envs succeeded) in "
+              f"{summary['seconds']:.2f} s, {gb:.3f} GB", flush=True)
+        if rows != scenes * T or collect_launches != demos["expected_launches"]:
+            raise RuntimeError(f"tsdf_student demos: {demos}")
+
+        # 2. BC, with cuDNN's deterministic algorithms: the gate's margin is
+        # a few per cent, and the weight gradients' default algorithms sum in
+        # an order that changes from run to run
+        cuda_lib.reset_launch_counts()
+        t0 = time.time()
+        torch.backends.cudnn.deterministic = True
+        try:
+            bc = train_torch.main([
+                "--taskcfg", "open_drawer", "--algocfg", "bc", "--algo.data_path", TSDF_DEMOS,
+                "--algo.max_iterations", str(BC_ITERATIONS), "--algo.save_frequence",
+                str(BC_ITERATIONS), "--exp_name", "chip_smoke_bc_seed11", "--log.mode", "screen"])
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        bc_wall = time.time() - t0
+        loss = [log["Train/bc_loss"] for log in bc.train_logs]
+        tail = float(np.mean(loss[-3:]))
+        bc_path = os.path.join(bc.save_ckpt_dir, f"model_{BC_ITERATIONS}.ckpt")
+        bc_out = {"iterations": bc.curr_iter, "bc_loss": loss, "mean_last_3": tail,
+                  "constant_predictor_loss": const_loss, "wall_seconds": bc_wall,
+                  "seconds_per_iteration_median_after_first": _median_after_first(bc.train_logs),
+                  "width": (bc.n_minibatches, bc.lr, bc.lr_schedule,
+                            bc.model_cfg["network"]["name"], bc.num_obs),
+                  "kernel_launches": cuda_lib.launch_counts()}
+        for k, v in bc_out["kernel_launches"].items():
+            launches_total[k] = launches_total.get(k, 0) + v
+        print(f"tsdf_student bc: loss {loss[0]:.4f} at 1, {tail:.4f} over the last 3 "
+              f"(constant predictor {const_loss:.4f}), "
+              f"{bc_out['seconds_per_iteration_median_after_first']:.3f} s an iteration",
+              flush=True)
+        if not (all(np.isfinite(loss)) and tail <= 0.5 * loss[0] and tail < const_loss
+                and os.path.exists(bc_path) and bc.curr_iter == BC_ITERATIONS
+                and not any(bc_out["kernel_launches"].values())):
+            raise RuntimeError(f"tsdf_student bc does not fit its demos: {bc_out}")
+
+        # 3. DAgger on mesh_tsdf, BC-pretrained, the demos ingested offline
+        runner, mesh = _tsdf_dagger("mesh_tsdf", TSDF_DAGGER_ITERATIONS, [
+            "--pretrain", bc_path, "--algo.offline_data_pth", TSDF_DEMOS], launches_total)
+        pre = ckpt_lib.load(bc_path)["ac"]
+        mesh["student_moved_from_bc"] = max(
+            float((p.detach().cpu() - pre[n]).abs().max())
+            for n, p in runner.student.named_parameters() if n.startswith("actor."))
+        mesh["breakdown"] = _iteration_split(runner)
+        macs = conv3d_macs()
+        per_sample = sum(macs.values())
+        # forward + backward (weight gradients of every layer, input gradients
+        # of all but conv1, whose input is data), 2 operations a multiply-add
+        samples = runner.n_updates * runner.num_mini_batches * runner.minibatch_sizes(
+            runner.last_ts.buffer.stu_obs.shape[0])[0]
+        flop = samples * (3 * per_sample - macs["conv1"]) * 2
+        mesh["update_work"] = {"macs_per_sample_forward": macs, "macs_total": per_sample,
+                               "samples_per_iteration": samples, "tflop_per_iteration": flop / 1e12,
+                               "tflop_per_s": flop / mesh["breakdown"]["update_s"] / 1e12}
+        mesh["step_breakdown"] = tsdf_step_breakdown(runner)
+        rows_real = runner.last_ts.buffer.stu_obs[:64].float()
+        expected_rows = rows + VISION_ENVS * runner.n_steps * TSDF_DAGGER_ITERATIONS
+        mesh_launch_ok = mesh["kernel_launches"] == mesh["expected_launches"]
+        emit("tsdf_student_mesh", **mesh)
+        print(f"tsdf_student mesh_tsdf: {mesh['seconds_per_iteration_median_after_first']:.3f} s "
+              f"an iteration (collect {mesh['breakdown']['collect_s']:.3f}, update "
+              f"{mesh['breakdown']['update_s']:.3f}, {mesh['update_work']['tflop_per_s']:.1f} "
+              f"TFLOP/s); grid query {mesh['step_breakdown']['parts']['mesh_tsdf_query_ms']:.2f} "
+              f"ms; launches {mesh['kernel_launches']}", flush=True)
+        if (not mesh_launch_ok or mesh["non_finite"] or mesh["cur_buf_size"] != expected_rows
+                or not mesh["student_moved_from_bc"] > 0
+                or mesh["width"][:2] != (VISION_ENVS, (VISION_ENVS, DEMO_RES ** 3))
+                or mesh["width"][3:9] != (19_200, 1280, 256, 2, 16, "Conv3DNet")):
+            raise RuntimeError(f"tsdf_student mesh_tsdf failed: launches {mesh['kernel_launches']} "
+                               f"(expected {mesh['expected_launches']}), non-finite "
+                               f"{mesh['non_finite']}, buffer {mesh['cur_buf_size']} (expected "
+                               f"{expected_rows}), moved {mesh['student_moved_from_bc']}, width "
+                               f"{mesh['width']}")
+        del runner
+
+        # 4. DAgger on depth_tsdf, through B2
+        runner, depth = _tsdf_dagger("depth_tsdf", DEPTH_DAGGER_ITERATIONS, [], launches_total)
+        depth["step_breakdown"] = tsdf_step_breakdown(runner)
+        emit("tsdf_student_depth", **depth)
+        print(f"tsdf_student depth_tsdf: {depth['seconds_per_iteration_median_after_first']:.3f} "
+              f"s an iteration; step {depth['step_breakdown']['parts']}; launches "
+              f"{depth['kernel_launches']}", flush=True)
+        if (depth["kernel_launches"] != depth["expected_launches"] or depth["non_finite"]
+                or depth["cur_buf_size"] != VISION_ENVS * DEPTH_DAGGER_ITERATIONS
+                or depth["width"][-3:] != (288, 512, True)):
+            raise RuntimeError(f"tsdf_student depth_tsdf failed: {depth}")
+        del runner
+
+        # 5. held against the plain versions on the card
+        fusion = tsdf_integrate_check(vision_cases())
+        conv = conv3d_card_vs_cpu(rows_real, dict(bc.model_cfg, action_std=0.1))
+        worst_tsdf = max(v["max_abs_err"] for v in fusion.values())
+        emit("tsdf_student", demos=demos, bc=bc_out, fusion_check=fusion,
+             fusion_tolerance={"max_abs_err": TSDF_TOL, "validity_flips_exact": 0},
+             conv3d_check=conv, launches=launches_total)
+        print(f"tsdf_student checks: fusion worst {worst_tsdf:.3g}, validity flips "
+              f"{[v['validity_flips'] for v in fusion.values()]}; Conv3DNet card vs CPU "
+              f"{conv['worst_f32']:.3g} (TF32 control {conv['worst_tf32_control']:.3g}, "
+              f"must exceed {CONV_TOL:g})",
+              flush=True)
+        if (worst_tsdf > TSDF_TOL or not all(v["finite"] for v in fusion.values())
+                or any(v["validity_flips"] for k, v in fusion.items() if k.endswith("exact"))
+                or conv["worst_f32"] > CONV_TOL or not conv["worst_tf32_control"] > CONV_TOL):
+            raise RuntimeError(f"tsdf_student checks failed: {fusion}, {conv}")
+    finally:
+        shutil.rmtree(TSDF_DEMOS, ignore_errors=True)
+    return launches_total
+
+
 def run_vision_path(phases, ptxas):
     """Every phase of the vision path; returns its two entries of the
     ``kernels`` line and the launches of DAgger training (or None)."""
@@ -1439,7 +1830,7 @@ def run_vision_path(phases, ptxas):
 
 
 PHASES = ("kernel_check", "small_reference", "main_path", "timing", "train",
-          "dagger_train", "dagger_loop")
+          "dagger_train", "dagger_loop", "tsdf_student")
 
 
 def make_envs():
@@ -1497,8 +1888,12 @@ def main(argv=None):
                         "ptxas": ptxas[path.kernel], **timing})
     vision_kernels, train = run_vision_path(args.only, ptxas)
     loop = dagger_loop() if "dagger_loop" in args.only else {}
+    tsdf = tsdf_student() if "tsdf_student" in args.only else {}
     next(k for k in kernels if k["name"] == "fused_inner_step_b1b").update(
-        launches_dagger_train=train.get("b1b"), launches_dagger_loop=loop.get("b1b"))
+        launches_dagger_train=train.get("b1b"), launches_dagger_loop=loop.get("b1b"),
+        launches_tsdf_student=tsdf.get("b1b"))
+    for k, name in zip(vision_kernels, ("b2", "b3")):
+        k["launches_tsdf_student"] = tsdf.get(name)
     kernels += vision_kernels
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -199,16 +199,7 @@ class DAgger:
         dict with ``tsdf``, ``tea_obs`` and, with ``add_proprio_obs``,
         ``proprio_state``), in sorted order, to the ring buffer: what the JAX
         package's row-by-row writes leave, in one write."""
-        stu, tea = [], []
-        for scene in sorted(os.listdir(folder)):
-            for step in sorted(os.listdir(pjoin(folder, scene))):
-                d = np.load(pjoin(folder, scene, step), allow_pickle=True).item()
-                s = np.asarray(d["tsdf"], np.float32).reshape(-1)
-                if self.add_proprio_obs:
-                    s = np.concatenate(
-                        [s, np.asarray(d["proprio_state"], np.float32).reshape(-1)])
-                stu.append(s)
-                tea.append(np.asarray(d["tea_obs"], np.float32).reshape(-1))
+        stu, tea = storage.read_demo_tree(folder, self.add_proprio_obs, "tea_obs")
         if not stu:
             return ts
         buf = ts.buffer

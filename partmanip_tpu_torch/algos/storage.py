@@ -9,13 +9,17 @@ Counterpart of ``partmanip_tpu/algos/storage.py``:
 * minibatching: sequential or random permutation of the flattened [T·E]
   buffer, minibatch size min(total // n_minibatches, 2048), drop-last;
 * the DAgger ring buffer's minibatches: a fresh shuffle of its valid rows
-  per epoch (:func:`buffer_minibatch_indices`).
+  per epoch (:func:`buffer_minibatch_indices`);
+* the demo trees BC trains on and DAgger ingests (:func:`read_demo_tree`).
 """
 
 from __future__ import annotations
 
+import os
+from os.path import join as pjoin
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -99,3 +103,22 @@ def buffer_minibatch_indices(generator: torch.Generator, cap: int, size,
     perms = torch.argsort(key, dim=1)
     pos = torch.arange(n_batches * mb, device=dev) % torch.clamp(size, min=1)
     return perms[:, pos].reshape(n_epochs * n_batches, mb)
+
+
+def read_demo_tree(folder: str, add_proprio: bool, label: str):
+    """The rows of a ``<folder>/<scene>/<step>.npy`` demo tree (dicts with
+    ``tsdf``, ``proprio_state``, ``action``, ``tea_obs``), scenes and steps
+    in sorted order: (student obs: the flattened ``tsdf`` (‖ ``proprio_state``
+    with ``add_proprio``), the flattened ``label`` entry), each a list of
+    f32 numpy rows."""
+    obs, labels = [], []
+    for scene in sorted(os.listdir(folder)):
+        for step in sorted(os.listdir(pjoin(folder, scene))):
+            d = np.load(pjoin(folder, scene, step), allow_pickle=True).item()
+            o = np.asarray(d["tsdf"], np.float32).reshape(-1)
+            if add_proprio:
+                o = np.concatenate(
+                    [o, np.asarray(d["proprio_state"], np.float32).reshape(-1)])
+            obs.append(o)
+            labels.append(np.asarray(d[label], np.float32).reshape(-1))
+    return obs, labels

@@ -88,8 +88,8 @@ def process_cfgs(argv=None, cfg_root: str = None):
     for kind, name in (("tasks", pargs.taskcfg), ("algos", pargs.algocfg)):
         if not os.path.exists(pjoin(cfg_root, kind, f"{name}.yaml")):
             raise NotImplementedError(
-                f"config {kind}/{name}.yaml is not ported yet (see ROADMAP "
-                f"Queue A: BC training and demo collection)")
+                f"config {kind}/{name}.yaml does not exist in the port (it has "
+                f"the JAX package's ppo, dagger and bc; ROADMAP Queue A)")
 
     with open(pjoin(cfg_root, "base.yaml")) as f:
         cfg = yaml.safe_load(f)

@@ -10,8 +10,13 @@ observation modes:
 * success: obj within 0.025 m of (0, 0, 0.2) while the gripper is at the obj;
 * random reset: xy ± 0.15, random yaw.
 
-The vision observation modes (depth / TSDF / point clouds) are not ported
-yet and raise ``NotImplementedError``.
+Of the vision observation modes, the two TSDF volumes are ported
+(``mesh_tsdf``, ``depth_tsdf``: :mod:`vision`, with grasp_cube's own
+``tsdf`` block, size 0.5 m at res 50; + the 25 proprio dims with
+``add_proprio_obs``); the others raise ``NotImplementedError``.  With a state
+learn mode ``num_obs`` stays as the YAML says (37): the JAX package's
+``_init_vision`` adds the proprio dims to it, though its observation
+concatenates none (ROADMAP Queue C).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from ..sim import contact as contact_lib
 from ..sim import engine, franka, kinematics
 from ..sim.types import (FreeBodySpec, FreeBodyState, SimParams, TreeState,
                          to_device)
-from . import base, control
+from . import base, control, vision
 from .base import STATE_OBS_MODES, EnvState, resolve_device
 
 RESET_RANGE = 0.15
@@ -35,6 +40,7 @@ GOAL_THRESH = 0.025
 SUCCESS_POS = (0.0, 0.0, 0.2)
 CUBE_HALF = 0.025           # obj z0 0.025 ⇒ 5 cm cube
 CUBE_DENSITY = 1000.0
+TSDF_MODES = ("mesh_tsdf", "depth_tsdf")
 
 
 class GraspCubeEnv:
@@ -52,11 +58,13 @@ class GraspCubeEnv:
         self.random_reset = cfg["random_reset"]
         self.learn_input_mode = cfg.get("learn_input_mode", "normal_state")
         self.add_proprio_obs = cfg.get("add_proprio_obs", False)
-        if self.learn_input_mode not in STATE_OBS_MODES:
+        if self.learn_input_mode not in STATE_OBS_MODES + TSDF_MODES:
+            vision.check_mode(self.learn_input_mode)
             raise NotImplementedError(
-                f"obs_mode {self.learn_input_mode!r}: grasp_cube's vision "
-                f"observations are not ported yet; the renderer serves "
-                f"open_drawer only (ROADMAP Queue A: remaining vision modes)")
+                f"obs_mode {self.learn_input_mode!r}: grasp_cube observes "
+                f"the TSDF modes {TSDF_MODES} only; the renderer's point "
+                f"cloud serves open_drawer (ROADMAP Queue A: remaining "
+                f"vision modes)")
         if cfg.get("save_video"):
             raise NotImplementedError(
                 "save_video needs the RGB renderer, which is not ported yet "
@@ -103,6 +111,7 @@ class GraspCubeEnv:
 
         self.num_dofs = self.ctrl.num_dofs
         self.num_obs = dict(cfg["obs_mode"])
+        self._init_vision(cfg)
 
         def dev(x):
             return torch.as_tensor(np.asarray(x, np.float32),
@@ -116,6 +125,30 @@ class GraspCubeEnv:
         self._pose_lower_t = dev(self.pose_lower)
         self._pose_upper_t = dev(self.pose_upper)
         self._goal_t = dev(SUCCESS_POS)
+
+    def _init_vision(self, cfg):
+        """Vision rig + flattened obs sizes of a TSDF learn mode (≙ the JAX
+        env's ``_init_vision``: resolution³ dims, + proprio with
+        ``add_proprio_obs``)."""
+        mode = self.learn_input_mode
+        self.vision_rig = None
+        if mode in STATE_OBS_MODES:
+            return
+        self.vision_rig = vision.VisionRig(
+            cfg["cam"], cfg["obs_mode"]["tsdf"], mode,
+            im_scale=cfg.get("im_scale", 1), device=self.device)
+        self.num_obs[mode] = int(cfg["obs_mode"]["tsdf"]["resolution"]) ** 3
+        if self.add_proprio_obs:
+            self.num_obs[mode] += self.num_obs["proprio_state"]
+
+    def _vision_obs(self, state: EnvState, obs: Dict):
+        if self.vision_rig is None:
+            return obs
+        obs.update(vision.render_obs(self, self.vision_rig, state.sim))
+        if self.add_proprio_obs:
+            m = self.learn_input_mode
+            obs[m] = torch.cat([obs[m], obs["proprio_state"]], dim=-1)
+        return obs
 
     # ------------------------------------------------------------------
     # state init / reset
@@ -190,7 +223,7 @@ class GraspCubeEnv:
         sim = engine.physics_step(self.scene, sim, targets)
         state = base.init_env_state(sim, E, state.rng)
         obs, _ = self._observations(state)
-        return state, obs
+        return state, self._vision_obs(state, obs)
 
     # ------------------------------------------------------------------
     # observation / reward
@@ -283,6 +316,7 @@ class GraspCubeEnv:
         state = state._replace(sim=sim, progress=state.progress + 1)
 
         obs, view = self._observations(state)
+        obs = self._vision_obs(state, obs)
         rew, success, extras = self._reward(state, view, actions)
         extras.update(pre_extras)
         state = state._replace(rew_buf=rew, success=success)

@@ -23,10 +23,11 @@ Every cabinet joint is simulated; only the per-env target dof feeds
 reward/obs.  ``asset.mesh_handle`` swaps the handle bars' collision boxes
 for mesh geoms, baked to SDF grids on the env's device (cached next to the
 meshes) and collided by the engine's grid branch (kernel B1c).  Of the
-vision observation modes, ``depth_pc`` is ported (:mod:`vision`: the rig is
-built by ``_init_vision``, the observation added by ``_vision_obs`` after
-every reset and step); the other vision modes and ``scene_pose`` are not
-ported yet and raise ``NotImplementedError``.
+vision observation modes, ``depth_pc``, ``depth_tsdf`` and ``mesh_tsdf``
+are ported (:mod:`vision`: the rig is built by ``_init_vision``, the
+observation added by ``_vision_obs`` after every reset and step); the other
+vision modes and ``scene_pose`` are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -205,14 +206,16 @@ class OpenDrawerEnv:
 
     def _init_vision(self, cfg):
         """Vision rig + flattened obs sizes (≙ the JAX env's
-        ``_init_vision``; the TSDF modes' volume sizes come with those
-        modes)."""
+        ``_init_vision``: the TSDF modes get resolution³ dims, + proprio with
+        ``add_proprio_obs``)."""
         mode = self.learn_input_mode
         self.vision_rig = None
         if mode not in STATE_OBS_MODES:
             self.vision_rig = vision.VisionRig(
                 cfg["cam"], cfg["obs_mode"]["tsdf"], mode,
-                im_scale=cfg.get("im_scale", 1))
+                im_scale=cfg.get("im_scale", 1), device=self.device)
+        if "tsdf" in mode:
+            self.num_obs[mode] = int(cfg["obs_mode"]["tsdf"]["resolution"]) ** 3
         if self.add_proprio_obs and mode in self.num_obs \
                 and mode != "proprio_state":
             self.num_obs[mode] += self.num_obs["proprio_state"]

@@ -5,9 +5,12 @@ them over here (``utils/checkpoint.load_jax`` does so for its checkpoints
 without importing JAX):
 
 * :func:`actor_critic_from_jax` — the flax parameter tree of ``ACParams`` →
-  a ``state_dict`` for :class:`models.actor_critic.ActorCritic`, for either
-  network kind (``MLP``; ``PointNet``, whose flax layers ``Dense_0..Dense_5``
-  are the three per-point layers, the two after the pool and the head);
+  a ``state_dict`` for :class:`models.actor_critic.ActorCritic`, for every
+  ported network (``MLP``; ``PointNet``, whose flax layers ``Dense_0..Dense_5``
+  are the three per-point layers, the two after the pool and the head;
+  ``Conv3DNet`` / ``PoolConv3DNet``: ``Conv_0..Conv_2`` with their kernels
+  [kD, kH, kW, in, out] as torch's [out, in, kD, kH, kW], then the dense
+  layer and the head);
 * :func:`adam_state_from_jax` — the Adam state of a JAX optimizer (PPO's
   actor part or critic, or DAgger's whole student) → the port's
   ``{"count", "mu", "nu"}`` keyed by parameter name;
@@ -34,33 +37,55 @@ from ..sim.engine import SceneState
 from ..sim.types import FreeBodyState, TreeState
 
 
-def _dense_from_flax(tree: dict, prefix: str, network: str) -> Dict[str, torch.Tensor]:
-    """``{"params": {"Dense_i": {"kernel" [in, out], "bias"}}}`` → entries
-    ``<prefix>.<layer>.weight [out, in]`` …: for an MLP ``hidden.i`` and the
-    last Dense the head; for a PointNet ``point.0-2``, ``hidden.0-1``,
-    ``head``."""
-    layers = tree["params"] if "params" in tree else tree
-    names = sorted(layers, key=lambda n: int(n.rsplit("_", 1)[1]))
+# the port's layers in the order of the flax tree's Dense_0, Dense_1, … (an
+# MLP's hidden layers are counted from the tree)
+_DENSE = {"PointNet": ("point.0", "point.1", "point.2", "hidden.0", "hidden.1", "head"),
+          "Conv3DNet": ("hidden", "head"), "PoolConv3DNet": ("hidden", "head")}
+# … and of its Conv_0, Conv_1, …: flax kernels [kD, kH, kW, in, out], torch
+# weights [out, in, kD, kH, kW]
+_CONV = {"Conv3DNet": ("stack.convs.0", "stack.convs.1", "stack.convs.2"),
+         "PoolConv3DNet": ("stack.convs.0", "stack.convs.1", "stack.convs.2")}
+_KERNEL_TO_TORCH = {2: (1, 0), 5: (4, 3, 0, 1, 2)}
+_WEIGHT_TO_FLAX = {2: (1, 0), 5: (2, 3, 4, 1, 0)}
+
+
+def _layer_names(network: str, n_dense: int):
+    """(flax name, port name) of every layer of ``network``."""
     if network == "MLP":
-        dst = [f"hidden.{i}" for i in range(len(names) - 1)] + ["head"]
-    elif network == "PointNet":
-        dst = ["point.0", "point.1", "point.2", "hidden.0", "hidden.1", "head"]
+        dense = [f"hidden.{i}" for i in range(n_dense - 1)] + ["head"]
+    elif network in _DENSE:
+        dense = list(_DENSE[network])
     else:
         raise NotImplementedError(f"no converter for network {network!r}")
-    if len(dst) != len(names):
-        raise ValueError(f"{network} has {len(dst)} dense layers, the tree {len(names)}")
+    return ([(f"Conv_{i}", n) for i, n in enumerate(_CONV.get(network, ()))]
+            + [(f"Dense_{i}", n) for i, n in enumerate(dense)])
+
+
+def _dense_from_flax(tree: dict, prefix: str, network: str) -> Dict[str, torch.Tensor]:
+    """``{"params": {"Conv_i" / "Dense_i": {"kernel", "bias"}}}`` → entries
+    ``<prefix>.<layer>.weight`` …: for an MLP ``hidden.i`` and the last
+    Dense the head; for a PointNet ``point.0-2``, ``hidden.0-1``, ``head``;
+    for a Conv3DNet / PoolConv3DNet ``stack.convs.0-2``, ``hidden``,
+    ``head``."""
+    layers = tree["params"] if "params" in tree else tree
+    n_dense = sum(name.startswith("Dense_") for name in layers)
+    names = _layer_names(network, n_dense)
+    if sorted(f for f, _ in names) != sorted(layers):
+        raise ValueError(f"{network} has layers {sorted(f for f, _ in names)}, "
+                         f"the tree {sorted(layers)}")
     out = {}
-    for d, name in zip(dst, names):
-        kernel = np.asarray(layers[name]["kernel"], np.float32)
-        out[f"{prefix}.{d}.weight"] = torch.from_numpy(np.array(kernel.T, order="C"))
+    for flax_name, d in names:
+        kernel = np.asarray(layers[flax_name]["kernel"], np.float32)
+        out[f"{prefix}.{d}.weight"] = torch.from_numpy(np.array(
+            kernel.transpose(_KERNEL_TO_TORCH[kernel.ndim]), order="C"))
         out[f"{prefix}.{d}.bias"] = torch.from_numpy(
-            np.array(layers[name]["bias"], np.float32))
+            np.array(layers[flax_name]["bias"], np.float32))
     return out
 
 
 def actor_critic_from_jax(np_tree: dict, network: str = "MLP") -> Dict[str, torch.Tensor]:
     """``{"actor": {"params": {...}}, "critic": {...}, "log_std"}`` (numpy
-    leaves) of a ``network`` (``MLP`` or ``PointNet``) actor-critic →
+    leaves) of a ``network`` actor-critic →
     ``ActorCritic.load_state_dict`` input."""
     sd = {"log_std": torch.from_numpy(np.array(np_tree["log_std"], np.float32))}
     sd.update(_dense_from_flax(np_tree["actor"], "actor", network))
@@ -70,24 +95,21 @@ def actor_critic_from_jax(np_tree: dict, network: str = "MLP") -> Dict[str, torc
 
 def actor_critic_to_jax(sd: Dict[str, torch.Tensor], network: str = "MLP") -> dict:
     """The inverse of :func:`actor_critic_from_jax`: a state dict (or
-    moments keyed alike) → ``{"actor": {"params": {"Dense_i": {"kernel",
-    "bias"}}}, "critic": ..., "log_std"}`` with numpy leaves."""
+    moments keyed alike) → ``{"actor": {"params": {"Conv_i" / "Dense_i":
+    {"kernel", "bias"}}}, "critic": ..., "log_std"}`` with numpy leaves."""
+    np_ = lambda t: t.detach().cpu().numpy().astype(np.float32)
+
     def tree(prefix):
-        layers = sorted({k[len(prefix) + 1:].rsplit(".", 1)[0] for k in sd
-                         if k.startswith(prefix + ".")})
-        if network == "MLP":
-            order = sorted((n for n in layers if n != "head"),
-                           key=lambda n: int(n.split(".")[1])) + ["head"]
-        elif network == "PointNet":
-            order = ["point.0", "point.1", "point.2", "hidden.0", "hidden.1", "head"]
-        else:
-            raise NotImplementedError(f"no converter for network {network!r}")
-        np_ = lambda t: t.detach().cpu().numpy().astype(np.float32)
-        return {"params": {f"Dense_{i}": {
-            "kernel": np.ascontiguousarray(np_(sd[f"{prefix}.{n}.weight"]).T),
-            "bias": np_(sd[f"{prefix}.{n}.bias"])} for i, n in enumerate(order)}}
+        n_dense = len({k for k in sd if k.startswith(prefix + ".hidden.")
+                       and k.endswith(".weight")}) + 1
+        out = {}
+        for flax_name, n in _layer_names(network, n_dense):
+            w = np_(sd[f"{prefix}.{n}.weight"])
+            out[flax_name] = {"kernel": np.ascontiguousarray(w.transpose(_WEIGHT_TO_FLAX[w.ndim])),
+                              "bias": np_(sd[f"{prefix}.{n}.bias"])}
+        return {"params": out}
     return {"actor": tree("actor"), "critic": tree("critic"),
-            "log_std": sd["log_std"].detach().cpu().numpy().astype(np.float32)}
+            "log_std": np_(sd["log_std"])}
 
 
 def adam_state_to_jax(state: dict, network: str = "MLP") -> dict:

@@ -33,7 +33,9 @@ def _main_args(tmp_path, *extra):
 
 
 def test_cli_test_only_end_to_end(tmp_path):
+    torch.backends.cudnn.allow_tf32 = True           # cuDNN's default
     runner = train_torch.main(_main_args(tmp_path, "--test_only"))
+    assert not torch.backends.cudnn.allow_tf32       # f32 convolutions, as JAX's
     log = runner.last_log
     assert sorted(log) == sorted(
         f"Test/{k}_{s}" for k in JAX_METRICS for s in ("mean", "max"))
@@ -78,7 +80,8 @@ TEACHER = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 
 @pytest.mark.parametrize("extra,roadmap_item", [
     (("--taskcfg", "open_drawer", "--algocfg", "dagger", "--algo.teacher", TEACHER,
-      "--task.asset.assetRoot", "{tmp}"), "remaining vision modes"),
+      "--algo.obs_mode", "depth_sparse", "--task.asset.assetRoot", "{tmp}"),
+     "remaining vision modes"),
     (("--test_only", "--algo.obs_mode", "depth_pc"), "renderer"),
     (("--test_only", "--save_pose"), "tooling"),
     (("--test_only", "--save_video"), "renderer"),

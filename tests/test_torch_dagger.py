@@ -148,11 +148,12 @@ def test_teacher_and_student_checkpoints(drawer_dagger):
 
 
 @pytest.mark.parametrize("extra,roadmap_item", [
-    (["--algocfg", "bc"], "BC training and demo collection"),
-    (["--algocfg", "dagger", "--taskcfg", "open_drawer", "--algo.obs_mode", "depth_tsdf"],
+    (["--algocfg", "dagger", "--taskcfg", "open_drawer", "--algo.obs_mode", "depth_img"],
+     "remaining vision modes"),
+    (["--algocfg", "dagger", "--taskcfg", "open_drawer", "--algo.obs_mode", "depth_sparse"],
      "remaining vision modes"),
     (["--algocfg", "dagger", "--taskcfg", "open_drawer", "--algo.obs_mode", "depth_pc",
-      "--algo.model.network.name", "Conv3DNet"], "remaining vision modes"),
+      "--algo.model.network.name", "ResNet"], "remaining vision modes"),
 ])
 def test_unported_parts_raise(tmp_path, extra, roadmap_item):
     args = ["--device", "cpu", "--test_only", "--algo.num_envs", "2", "--log.mode", "screen",

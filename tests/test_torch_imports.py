@@ -14,7 +14,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 import partmanip_tpu_torch
-names = ["partmanip_tpu_torch", "train_torch", "chip_smoke"] + [
+names = ["partmanip_tpu_torch", "train_torch", "chip_smoke", "collect_demos_torch"] + [
     m.name for m in pkgutil.walk_packages(partmanip_tpu_torch.__path__,
                                           "partmanip_tpu_torch.")]
 for name in names:
@@ -52,7 +52,7 @@ def test_every_subpackage_has_its_counterpart_layout():
         assert f"partmanip_tpu_torch.{sub}" in mods
     for name in ("ops.raymarch", "ops.raymarch_cuda", "ops.fps", "ops.tsdf",
                  "envs.vision", "utils.camera", "utils.cuda_lib", "algos.dagger",
-                 "ops.sdf", "algos.storage"):
+                 "ops.sdf", "algos.storage", "algos.bc"):
         assert f"partmanip_tpu_torch.{name}" in mods, name
     for name in mods:
         if name.endswith((".contact_states", ".convert", ".cuda_lib")):
@@ -64,7 +64,7 @@ def test_every_subpackage_has_its_counterpart_layout():
 
 
 KERNEL_REGISTRY = r"""
-import train_torch, chip_smoke
+import train_torch, chip_smoke, collect_demos_torch
 from partmanip_tpu_torch.ops import fps, raymarch, raymarch_cuda, tsdf
 from partmanip_tpu_torch.envs import vision
 from partmanip_tpu_torch.sim import fused
@@ -90,7 +90,8 @@ def test_every_kernel_registers_its_count_and_builds_nothing_at_import():
 def test_port_sources_never_name_jax_imports():
     import re
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|partmanip_tpu)\b", re.M)
-    files = [os.path.join(ROOT, "train_torch.py"), os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, n) for n in ("train_torch.py", "chip_smoke.py",
+                                             "collect_demos_torch.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "partmanip_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     for path in files:

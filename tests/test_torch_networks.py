@@ -52,7 +52,7 @@ def test_bf16_is_the_default_compute_dtype():
         tnetworks.MLP(NUM_OBS, 4, dict(cfg["network"], dtype="f16"))
 
 
-@pytest.mark.parametrize("name", ["Conv3DNet", "depthResNet", "ResNet"])
+@pytest.mark.parametrize("name", ["depthResNet", "ResNet"])
 def test_vision_networks_raise(name):
     with pytest.raises(NotImplementedError, match="remaining vision modes"):
         tnetworks.make_network(name, 8, 4, _model_cfg()["network"])

@@ -14,6 +14,16 @@ Usage:
         --algo.obs_mode depth_pc --algo.model.network.name PointNet \
         --algo.teacher artifacts/open_drawer_ppo/expert_r3c_seed389/model_30000.ckpt
                                                       # DAgger training
+    python collect_demos_torch.py --only_success --taskcfg open_drawer \
+        --teacher artifacts/open_drawer_ppo/expert_r3c_seed389/model_30000.ckpt \
+        --out logs/tsdf_demos                         # mesh_tsdf demos
+    python train_torch.py --taskcfg open_drawer --algocfg bc \
+        --algo.data_path logs/tsdf_demos              # BC of the Conv3DNet student
+    python train_torch.py --taskcfg open_drawer --algocfg dagger \
+        --pretrain logs/ckpts/open_drawer_bc/<exp>/model_1000.ckpt \
+        --algo.offline_data_pth logs/tsdf_demos \
+        --algo.teacher artifacts/open_drawer_ppo/expert_r3c_seed389/model_30000.ckpt
+                                                      # the TSDF student (YAML defaults)
 Every YAML key is exposed as a dotted CLI flag (see
 partmanip_tpu_torch/config.py).  Runs on the GPU; ``--device cpu`` runs the
 plain PyTorch path on the CPU instead.  ``--im_scale N`` divides the
@@ -26,6 +36,7 @@ import random
 from argparse import ArgumentParser
 
 import numpy as np
+import torch
 
 from partmanip_tpu_torch.config import process_cfgs
 from partmanip_tpu_torch.utils.logger import Logger
@@ -70,9 +81,11 @@ def make_runner(env, cfg, logger):
     if name == "dagger":
         from partmanip_tpu_torch.algos.dagger import DAgger
         return DAgger(env, cfg["algo"], logger)
-    raise NotImplementedError(
-        f"algo {name!r} is not ported yet (ROADMAP Queue A: BC training and "
-        f"demo collection)")
+    if name == "bc":
+        from partmanip_tpu_torch.algos.bc import BC
+        return BC(env, cfg["algo"], logger)
+    raise NotImplementedError(f"algo {name!r} has no runner in the port (it has "
+                              f"ppo, dagger and bc)")
 
 
 def main(argv=None):
@@ -82,6 +95,8 @@ def main(argv=None):
     dev_parser.add_argument("--device", default="cuda")
     dev_parser.add_argument("--im_scale", type=int, default=1)
     dargs, rest = dev_parser.parse_known_args(argv)
+    # f32 convolutions, as the JAX package's (cuDNN's default is TF32)
+    torch.backends.cudnn.allow_tf32 = False
 
     cfg, sim_params = process_cfgs(rest)
     cfg["task"]["im_scale"] = dargs.im_scale
