@@ -17,10 +17,17 @@ physics).  Every phase runs once per path; the mesh-handle path also runs
 also ``dagger_train``, DAgger training of the point-cloud student at full
 width (B1b, B2 and B3 on its collection); then ``dagger_loop``, the DAgger
 loop proof of a normal_state student held against the JAX package's
-recorded run.  Prints one JSON object per phase (``device``, ``bake``,
-``build``, then ``kernel_check``, ``small_reference``, ``main_path`` and
-``timing`` for each path, ``train``, the vision path's ``step_breakdown``
-and ``dagger_train``, ``dagger_loop``), then the ``kernels`` line, the
+recorded run; ``tsdf_student``, demos → BC → DAgger of the TSDF student;
+``vision_modes``, DAgger of the depth-image and RGB ResNet students on
+grasp_cube (B1a, B2 at 1 × 72×128; their teacher a PPO checkpoint written
+by the port in the phase) and of the sparse-voxel PointNet student on
+open_drawer (B1b, B2, B3 at N = 50³); the vision path's ``kernel_check``
+and ``timing`` also hold and time B2 and B3 at those shapes.  Prints one
+JSON object per phase (``device``, ``bake``, ``build``, then
+``kernel_check``, ``small_reference``, ``main_path`` and ``timing`` for
+each path, ``train``, the vision path's ``step_breakdown`` and
+``dagger_train``, ``dagger_loop``, ``tsdf_student*``, ``vision_modes*``),
+then the ``kernels`` line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}`` as the
 last line.  Any failed phase raises, so the script exits non-zero and prints
 no result line.  ``--only`` runs a subset of the phases (for bringing up a
@@ -28,6 +35,7 @@ kernel); the default is all.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import random
@@ -40,6 +48,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 NUM_ENVS = 2048
 # one-inner-step tolerances, kernel vs plain version (f32 re-association and
@@ -59,8 +68,14 @@ H100_F32_FLOPS = 67e12        # non-tensor f32 peak, NVIDIA data sheet (SXM)
 H100_BYTES_PER_S = 3.35e12    # HBM3 peak, NVIDIA data sheet (SXM)
 
 
+_START = time.time()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of a phase's results, with the script's elapsed
+    seconds."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": round(time.time() - _START, 1)}), flush=True)
 
 
 def nvidia_smi_line():
@@ -1225,46 +1240,55 @@ def _median_after_first(logs):
     return statistics.median(log["Progress/iteration_time"] for log in logs[1:])
 
 
-def _top_kernels(fn, n=6):
-    """The ``n`` device kernels that take most of one call of ``fn``
-    (``torch.profiler``): [(name, ms, calls)]."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ks = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    ks.sort(key=lambda e: -(getattr(e, "device_time_total", 0) or 0))
-    return [(e.key[:120], (e.device_time_total or 0) / 1e3, e.count) for e in ks[:n]]
-
-
-def _iteration_split(runner, reps=3):
+def _iteration_split(runner, reps=3, iteration_s=None, profile_epochs=None):
     """``_collect`` alone and the whole DAgger iteration (host clock around
-    synchronised work, median of ``reps``), the update their difference,
-    the iteration's device time and idle share (``torch.profiler``) and its
-    top device kernels, continuing from the runner's last state."""
+    synchronised work, median of ``reps``; or ``iteration_s`` given, the
+    run's own), the update their difference, then one more iteration
+    under ``torch.profiler`` (device activity only): its device time, idle
+    share and top device kernels; continuing from the runner's last state.
+    ``profile_epochs`` cuts the profiled iteration to that many of its
+    ``n_updates`` epochs (a ResNet iteration's ≈ 150,000 kernels take the
+    profiler minutes to collect; its steps are alike)."""
     from partmanip_tpu_torch.utils.fetch import fetch_scalars
     ts, es = runner.last_ts, runner.last_env_state
-    collect_s, iteration_s = [], []
+    collect_s, iterations = [], []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ts, es, _ = runner._collect(ts, es)
         torch.cuda.synchronize()
         collect_s.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        ts, es, m = runner._dagger_iteration(ts, es, float(runner._lr_now()))
-        fetch_scalars(m)
-        iteration_s.append(time.perf_counter() - t0)
-    _, device_ms = _device_ms(lambda: fetch_scalars(runner._dagger_iteration(
-        ts, es, float(runner._lr_now()))[2]), [], reps=2)
+        if iteration_s is None:
+            t0 = time.perf_counter()
+            ts, es, m = runner._dagger_iteration(ts, es, float(runner._lr_now()))
+            fetch_scalars(m)
+            iterations.append(time.perf_counter() - t0)
     out = {"collect_s": statistics.median(collect_s),
-           "iteration_s": statistics.median(iteration_s),
-           "iteration_device_s": None if device_ms is None else device_ms / 1e3}
+           "iteration_s": statistics.median(iterations) if iteration_s is None else iteration_s}
     out["update_s"] = out["iteration_s"] - out["collect_s"]
+    epochs = runner.n_updates
+    runner.n_updates = profile_epochs or epochs
+    torch.cuda.synchronize()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fetch_scalars(runner._dagger_iteration(ts, es, float(runner._lr_now()))[2])
+            torch.cuda.synchronize()
+            profiled_s = time.perf_counter() - t0
+    finally:
+        runner.n_updates = epochs
+    ks = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(getattr(e, "device_time_total", 0) or 0 for e in ks)
+    out["profiled_epochs"] = profile_epochs or epochs
+    out["iteration_device_s"] = device_us / 1e6 if device_us > 0 else None
+    out["profiled_iteration_s"] = profiled_s
     if out["iteration_device_s"] is not None:
-        out["device_idle_share"] = 1.0 - out["iteration_device_s"] / out["iteration_s"]
-    out["top_kernels_ms"] = _top_kernels(lambda: fetch_scalars(runner._dagger_iteration(
-        ts, es, float(runner._lr_now()))[2]))
+        # the share of the profiled iteration's own wall time
+        out["device_idle_share"] = 1.0 - out["iteration_device_s"] / (
+            out["iteration_s"] if profile_epochs is None else profiled_s)
+    ks.sort(key=lambda e: -(getattr(e, "device_time_total", 0) or 0))
+    out["top_kernels_ms"] = [(e.key[:120], (e.device_time_total or 0) / 1e3, e.count)
+                             for e in ks[:6]]
     return out
 
 
@@ -1445,7 +1469,7 @@ def dagger_loop():
 TSDF_DEMOS = os.path.join(ROOT, "build", "chip_smoke_tsdf_demos")
 DEMO_RES, DEMO_T = 50, 200    # open_drawer.yaml: tsdf resolution, maxEpisodeLength
 BC_ITERATIONS = 7             # bc.yaml runs 1000: the fewest that pass the loss gates
-TSDF_DAGGER_ITERATIONS = 10   # dagger.yaml runs 10000
+TSDF_DAGGER_ITERATIONS = 5    # dagger.yaml runs 10000: cut so that the script stays in its limit
 DEPTH_DAGGER_ITERATIONS = 3
 CONV_TOL = 1e-4               # card vs CPU, relative to the largest magnitude; TF32 must fail it
 TSDF_TOL = 1e-6               # integrate(B2 depth) vs integrate(plain depth)
@@ -1531,57 +1555,106 @@ def tsdf_integrate_check(cases):
     return out
 
 
-def conv3d_card_vs_cpu(rows, model_cfg):
-    """A seeded Conv3DNet actor's forward and weight gradients on the card
-    against the CPU's on the same real rows: the largest difference of each,
-    relative to the largest magnitude, with cuDNN's TF32 off as the port's
-    entry points set it; then the same card network with TF32 on, the
-    control: the check's own comparison must fail it, or the check could not
-    tell TF32 from f32.  cuDNN's flag is restored afterwards."""
+@contextlib.contextmanager
+def _branches(record=None, replay=None):
+    """Within the block, every ``F.relu`` and ``F.max_pool2d`` call (the
+    ResNets' kinks: 33 ReLUs and the stem's pool) appends the branch it
+    takes to ``record`` (the mask x > 0, the pool's picks), or takes the
+    next branch of ``replay`` instead of its own."""
+    relu, pool = F.relu, F.max_pool2d
+    taken = iter(replay or [])
+
+    def relu_(x, inplace=False):
+        if replay is not None:
+            return x * next(taken).to(x.device, x.dtype)
+        record.append((x > 0).cpu())
+        return relu(x)
+
+    def pool_(h, kernel, stride=None, padding=0, *args, **kwargs):
+        out, idx = pool(h, kernel, stride, padding, return_indices=True)
+        if replay is not None:
+            return h.flatten(2).gather(2, next(taken).to(h.device).flatten(2)).view_as(out)
+        record.append(idx.cpu())
+        return out
+    F.relu, F.max_pool2d = relu_, pool_
+    try:
+        yield
+    finally:
+        F.relu, F.max_pool2d = relu, pool
+
+
+def net_card_vs_cpu(rows, model_cfg, proprio=0, tol=CONV_TOL):
+    """A seeded actor (``model_cfg``'s network, ``proprio`` columns at the
+    end of each row)'s forward and weight gradients on the card against the
+    CPU's on the same real rows, each tensor's largest difference relative
+    to its largest magnitude, with cuDNN's TF32 off as the port's entry
+    points set it; then the same card network with TF32 on, the control:
+    the check's own comparison must fail it, or the check could not tell
+    TF32 from f32.  cuDNN's flag is restored afterwards.  The CPU run
+    takes the card run's branches at every ReLU and max pool
+    (:func:`_branches`): a pre-activation within rounding of 0 takes the
+    other side of the kink in another f32 implementation, and float64
+    too, which moves the gradient entries behind it by up to 1.7e-2 on
+    the ResNets' image rows; ``unmatched_*`` is the comparison without."""
     from partmanip_tpu_torch.models.actor_critic import ActorCritic
-    net = ActorCritic(rows.shape[1], 10, model_cfg)
+    net = ActorCritic(rows.shape[1], 10, model_cfg, proprio_shape=proprio)
     net.init(5)
-    card = ActorCritic(rows.shape[1], 10, model_cfg).to("cuda")
+    card = ActorCritic(rows.shape[1], 10, model_cfg, proprio_shape=proprio).to("cuda")
     card.load_state_dict(net.state_dict())
     names = ["forward"] + [n for n, _ in net.actor.named_parameters()]
 
-    def run(n):
+    def run(n, record=None, replay=None):
         n.zero_grad(set_to_none=True)
         dev = next(n.parameters()).device
-        y = n.actor(rows.to(dev))
+        with _branches(record if record is not None else [], replay):
+            y = n.actor(rows.to(dev))
         (y * torch.linspace(-1, 1, y.numel(), device=dev).reshape(y.shape)).sum().backward()
         return [y.detach().cpu()] + [p.grad.cpu() for _, p in n.actor.named_parameters()]
 
-    ref = run(net)
-    rel = lambda got: {n: float((g - r).abs().max() / r.abs().max().clamp(min=1e-30))
-                       for n, g, r in zip(names, got, ref)}
+    def rel(got, ref):
+        return {n: float((g - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                for n, g, r in zip(names, got, ref)}
+
+    def card_against_cpu():
+        taken = []
+        got = run(card, record=taken)
+        return rel(got, run(net, replay=taken)), rel(got, unmatched_ref)
+    unmatched_ref = run(net)
     was = torch.backends.cudnn.allow_tf32
     try:
         torch.backends.cudnn.allow_tf32 = False
-        f32 = rel(run(card))
+        f32, f32_unmatched = card_against_cpu()
         torch.backends.cudnn.allow_tf32 = True
-        tf32 = rel(run(card))
+        tf32, tf32_unmatched = card_against_cpu()
     finally:
         torch.backends.cudnn.allow_tf32 = was
-    return {"rows": rows.shape[0], "rel_err_f32": f32, "worst_f32": max(f32.values()),
+    worst = lambda d: max(d, key=d.get)
+    return {"rows": rows.shape[0], "network": model_cfg["network"]["name"],
+            "rel_err_f32": f32, "worst_f32": max(f32.values()), "worst_f32_at": worst(f32),
             "rel_err_tf32_control": tf32, "worst_tf32_control": max(tf32.values()),
-            "tolerance": CONV_TOL,
+            "worst_tf32_control_at": worst(tf32), "tolerance": tol,
+            "unmatched_f32": f32_unmatched, "worst_unmatched_f32": max(f32_unmatched.values()),
+            "worst_unmatched_f32_at": worst(f32_unmatched),
+            "worst_unmatched_tf32_control": max(tf32_unmatched.values()),
             "cudnn": {"version": torch.backends.cudnn.version(), "allow_tf32_restored": was,
                       "benchmark": torch.backends.cudnn.benchmark}}
 
 
-def tsdf_step_breakdown(runner, reps=10):
+def student_step_breakdown(runner, reps=10):
     """One DAgger evaluation step of the runner's student taken apart (host
     clock, each part ending in a synchronise): physics and state
-    observation, scene primitives (FK), then for mesh_tsdf the grid query,
-    for depth_tsdf the coarse-to-fine render (B2) and the fusion; the
-    Conv3DNet student."""
+    observation, scene primitives (FK), then the mode's own parts — for
+    mesh_tsdf the grid query; else the coarse-to-fine render (B2), and for
+    depth_tsdf the fusion, for depth_sparse the fusion, the near-voxel
+    points and FPS (B3), for rgb_img the shading, for depth_pc the
+    unprojection and FPS (B3) — and the student's forward."""
     from partmanip_tpu_torch.envs import vision
-    from partmanip_tpu_torch.ops import tsdf
+    from partmanip_tpu_torch.ops import fps, raymarch, tsdf
     env, rig = runner.env, runner.env.vision_rig
+    spec, mode = rig.tsdf_spec, rig.mode
     with torch.no_grad():
         state, obs = env.reset(env.init_state(env.make_generator(4)))
-        o = obs[rig.mode]
+        o = obs[mode]
         act = runner.student.act(o)
         step_ms = _host_ms(lambda: env.step(state, act, train=False), reps)
         env.vision_rig = None
@@ -1590,21 +1663,40 @@ def tsdf_step_breakdown(runner, reps=10):
         prims = vision.scene_prims(env, state.sim)
         parts = {"physics_and_state_obs_ms": physics_ms,
                  "scene_prims_ms": _host_ms(lambda: vision.scene_prims(env, state.sim), reps)}
-        if rig.mode == "mesh_tsdf":
+        if mode == "mesh_tsdf":
             parts["mesh_tsdf_query_ms"] = _host_ms(lambda: vision.mesh_tsdf(rig, prims), reps)
         else:
             depth = vision.render_depth(rig, prims)
             parts["render_b2_ms"] = _host_ms(lambda: vision.render_depth(rig, prims), reps)
-            parts["integrate_ms"] = _host_ms(lambda: tsdf.integrate(rig.tsdf_spec, depth), reps)
-        parts["conv3dnet_ms"] = _host_ms(lambda: runner.student.act(o), reps)
+        if mode in ("depth_tsdf", "depth_sparse"):
+            parts["integrate_ms"] = _host_ms(lambda: tsdf.integrate(spec, depth), reps)
+        if mode == "depth_sparse":
+            vol = tsdf.integrate(spec, depth)
+            parts["sparse_points_ms"] = _host_ms(lambda: tsdf.sparse_points(spec, vol), reps)
+            pts = tsdf.sparse_points(spec, vol)[0]
+        if mode == "depth_pc":
+            parts["unproject_crop_ms"] = _host_ms(lambda: tsdf.workspace_points(spec, depth), reps)
+            pts = tsdf.workspace_points(spec, depth)
+        if mode in ("depth_sparse", "depth_pc"):
+            parts["fps_b3_ms"] = _host_ms(lambda: fps.farthest_point_sampling(pts, K_POINTS), reps)
+        if mode == "rgb_img":
+            parts["shading_ms"] = _host_ms(lambda: raymarch.render_rgb(
+                prims, rig.poses[:1], rig.intrinsic, rig.im_h, rig.im_w,
+                depth=depth[:, :1]), reps)
+        net = runner.model_cfg["network"]["name"].lower()
+        parts[f"{net}_ms"] = _host_ms(lambda: runner.student.act(o), reps)
     return {"env_step_ms": step_ms, "parts": parts, "parts_sum_ms": sum(parts.values())}
 
 
-def _tsdf_dagger(mode, iterations, extra, launches_total):
-    """One DAgger run of the TSDF student through the CLI entry point at
-    dagger.yaml's defaults (with ``--algo.obs_mode mode``), one evaluation
-    after the last iteration; its launches, checked exactly (B1b for every
-    physics step, B2 twice for every depth_tsdf observation, no B3)."""
+def _dagger_run(task, mode, iterations, extra, launches_total, teacher=DRAWER_CKPT,
+                network=None, seed=23):
+    """One DAgger run of a vision student through the CLI entry point at
+    dagger.yaml's defaults (with ``--algo.obs_mode mode`` on ``task``, the
+    YAML's network unless ``network`` names another), one evaluation after
+    the last iteration; its launches, checked exactly against the printed
+    formulas: the task's physics kernel (B1a on grasp_cube, B1b on
+    open_drawer) for every physics step, B2 once a pass for every rendered
+    observation, B3 for every observation that samples points."""
     import train_torch
     from partmanip_tpu_torch.utils import cuda_lib
     K = iterations
@@ -1612,10 +1704,11 @@ def _tsdf_dagger(mode, iterations, extra, launches_total):
     torch.cuda.synchronize()
     t0 = time.time()
     runner = train_torch.main([
-        "--taskcfg", "open_drawer", "--algocfg", "dagger", "--algo.obs_mode", mode,
-        "--algo.teacher", DRAWER_CKPT, "--algo.max_iterations", str(K),
+        "--taskcfg", task, "--algocfg", "dagger", "--algo.obs_mode", mode,
+        "--algo.teacher", teacher, "--algo.max_iterations", str(K),
         "--algo.eval_round", "1", "--algo.eval_frequence", str(K),
-        "--exp_name", f"chip_smoke_{mode}_student_seed23", "--log.mode", "screen", *extra])
+        "--exp_name", f"chip_smoke_{mode}_student_seed{seed}", "--log.mode", "screen",
+        *(["--algo.model.network.name", network] if network else []), *extra])
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = cuda_lib.launch_counts()
@@ -1623,12 +1716,19 @@ def _tsdf_dagger(mode, iterations, extra, launches_total):
         launches_total[k] = launches_total.get(k, 0) + v
     env, rig = runner.env, runner.env.vision_rig
     T, cfi = env.max_episode_length, env.control_freq_inv
+    physics = "b1a" if task == "grasp_cube" else "b1b"
     n_obs = 1 + K * runner.n_steps + (1 + T + 1)
-    b1b = f"1 + K·n_steps·cfi + (2 + T·cfi) = 1 + {K}·{runner.n_steps}·{cfi} + (2 + {T}·{cfi})"
-    expected = {"b1b": 1 + K * runner.n_steps * cfi + 2 + T * cfi, "b1a": 0, "b1c": 0,
-                "b3": 0, "b2": n_obs * 2 if mode == "depth_tsdf" else 0}
-    formula = {"b1b": b1b, "b2": "2 · (1 + K·n_steps + 1 + T + 1)" if mode == "depth_tsdf"
-               else "0 (no render)", "b3": "0"}
+    renders = mode != "mesh_tsdf"
+    passes = 2 if rig.coarse_to_fine and rig.im_h % 4 == 0 and rig.im_w % 4 == 0 else 1
+    samples = mode in ("depth_pc", "depth_sparse")
+    expected = {"b1a": 0, "b1b": 0, "b1c": 0, "b2": n_obs * passes if renders else 0,
+                "b3": n_obs if samples else 0}
+    expected[physics] = 1 + K * runner.n_steps * cfi + 2 + T * cfi
+    obs_formula = f"1 + K·n_steps + (1 + T + 1) = 1 + {K}·{runner.n_steps} + (1 + {T} + 1)"
+    formula = {physics: f"1 + K·n_steps·cfi + (2 + T·cfi) = 1 + {K}·{runner.n_steps}·{cfi} "
+                        f"+ (2 + {T}·{cfi})",
+               "b2": f"{passes} · ({obs_formula})" if renders else "0 (no render)",
+               "b3": obs_formula if samples else "0 (no point sampling)"}
     logs = runner.train_logs
     # the last log holds the evaluation's Val/* metrics too
     bad = sorted({k for log in logs for k, v in log.items()
@@ -1641,13 +1741,14 @@ def _tsdf_dagger(mode, iterations, extra, launches_total):
              runner.model_cfg["network"]["name"], rig.mode, rig.tsdf_spec.resolution,
              rig.im_h, rig.im_w, rig.coarse_to_fine)
     return runner, {
-        "obs_mode": mode, "iterations": runner.curr_iter, "width": width,
+        "task": task, "obs_mode": mode, "iterations": runner.curr_iter, "width": width,
         "kernel_launches": launches, "expected_launches": expected,
         "launch_formula": formula, "wall_seconds": wall,
         "iteration_seconds": [log["Progress/iteration_time"] for log in logs],
         "seconds_per_iteration_median_after_first": _median_after_first(logs),
         "dagger_loss": [log["Train/dagger_loss"] for log in logs],
-        "cur_buf_size": ts.buffer.size.item(), "buffer_gb": ts.buffer.stu_obs.numel() * 2 / 1e9,
+        "cur_buf_size": ts.buffer.size.item(),
+        "buffer_gb": ts.buffer.stu_obs.numel() * ts.buffer.stu_obs.element_size() / 1e9,
         "non_finite": bad, "eval": {k: v for k, v in runner.last_log.items()
                                     if k.startswith("Val/") and ("succ" in k or "reward" in k)}}
 
@@ -1659,7 +1760,7 @@ def tsdf_student():
     (train_torch.py --algocfg bc, bc.yaml's 50 minibatches, lr 5e-4,
     step_decay; BC_ITERATIONS iterations), DAgger from that checkpoint with
     the demos ingested offline (dagger.yaml as it is: 16 envs, buf_size 1200,
-    minibatch 2048 in chunks of 256, 2 × 16 Adam steps; 10 iterations and
+    minibatch 2048 in chunks of 256, 2 × 16 Adam steps; 5 iterations and
     one evaluation), then the depth_tsdf student (3 iterations, one
     evaluation) through B2; TSDF fusion of B2's depth held against fusion
     of the plain march's, Conv3DNet on the card against the CPU.  Returns
@@ -1732,7 +1833,7 @@ def tsdf_student():
             raise RuntimeError(f"tsdf_student bc does not fit its demos: {bc_out}")
 
         # 3. DAgger on mesh_tsdf, BC-pretrained, the demos ingested offline
-        runner, mesh = _tsdf_dagger("mesh_tsdf", TSDF_DAGGER_ITERATIONS, [
+        runner, mesh = _dagger_run("open_drawer", "mesh_tsdf", TSDF_DAGGER_ITERATIONS, [
             "--pretrain", bc_path, "--algo.offline_data_pth", TSDF_DEMOS], launches_total)
         pre = ckpt_lib.load(bc_path)["ac"]
         mesh["student_moved_from_bc"] = max(
@@ -1749,7 +1850,7 @@ def tsdf_student():
         mesh["update_work"] = {"macs_per_sample_forward": macs, "macs_total": per_sample,
                                "samples_per_iteration": samples, "tflop_per_iteration": flop / 1e12,
                                "tflop_per_s": flop / mesh["breakdown"]["update_s"] / 1e12}
-        mesh["step_breakdown"] = tsdf_step_breakdown(runner)
+        mesh["step_breakdown"] = student_step_breakdown(runner)
         rows_real = runner.last_ts.buffer.stu_obs[:64].float()
         expected_rows = rows + VISION_ENVS * runner.n_steps * TSDF_DAGGER_ITERATIONS
         mesh_launch_ok = mesh["kernel_launches"] == mesh["expected_launches"]
@@ -1771,8 +1872,9 @@ def tsdf_student():
         del runner
 
         # 4. DAgger on depth_tsdf, through B2
-        runner, depth = _tsdf_dagger("depth_tsdf", DEPTH_DAGGER_ITERATIONS, [], launches_total)
-        depth["step_breakdown"] = tsdf_step_breakdown(runner)
+        runner, depth = _dagger_run("open_drawer", "depth_tsdf", DEPTH_DAGGER_ITERATIONS, [],
+                                    launches_total)
+        depth["step_breakdown"] = student_step_breakdown(runner)
         emit("tsdf_student_depth", **depth)
         print(f"tsdf_student depth_tsdf: {depth['seconds_per_iteration_median_after_first']:.3f} "
               f"s an iteration; step {depth['step_breakdown']['parts']}; launches "
@@ -1785,7 +1887,7 @@ def tsdf_student():
 
         # 5. held against the plain versions on the card
         fusion = tsdf_integrate_check(vision_cases())
-        conv = conv3d_card_vs_cpu(rows_real, dict(bc.model_cfg, action_std=0.1))
+        conv = net_card_vs_cpu(rows_real, dict(bc.model_cfg, action_std=0.1))
         worst_tsdf = max(v["max_abs_err"] for v in fusion.values())
         emit("tsdf_student", demos=demos, bc=bc_out, fusion_check=fusion,
              fusion_tolerance={"max_abs_err": TSDF_TOL, "validity_flips_exact": 0},
@@ -1804,6 +1906,322 @@ def tsdf_student():
     return launches_total
 
 
+# ----------------------------------------------------------------------
+# the remaining vision modes: image students on grasp_cube (B1a, B2 at
+# 1 × 72×128), the sparse-voxel student on open_drawer (B1b, B2, B3 at
+# N = 50³)
+# ----------------------------------------------------------------------
+
+CUBE_FLAGS = ["--taskcfg", "grasp_cube", "--algocfg", "ppo"]
+IMAGE_STUDENTS = (("depth_img", "depthResNet"), ("rgb_img", "ResNet"))
+TEACHER_ITERATIONS = 3        # ppo.yaml runs 200000: enough to save a checkpoint
+MODE_ITERATIONS = 4           # dagger.yaml runs 10000
+RESNET_TOL = 1e-4             # card vs CPU on the card's branches, relative to the largest magnitude
+
+
+def mode_rigs(task):
+    """(image rig: 1 view of 72×128, volume rig: 3 views of 288×512 with the
+    task's TSDF block) of ``task``'s camera."""
+    from partmanip_tpu_torch.config import process_cfgs
+    from partmanip_tpu_torch.envs import vision
+    cfg, _ = process_cfgs(["--taskcfg", task])
+    cam, block = cfg["task"]["cam"], cfg["task"]["obs_mode"]["tsdf"]
+    return (vision.VisionRig(cam, block, "depth_img", device="cuda"),
+            vision.VisionRig(cam, block, "depth_sparse", device="cuda"))
+
+
+@torch.no_grad()
+def mode_cases(drawer_cases):
+    """Scene primitives at 16 envs on both tasks: open_drawer's
+    ``drawer_cases`` (:func:`vision_cases`) and grasp_cube's reset and 40
+    steps of a seeded random policy (no grasp_cube expert exists), with
+    each task's rigs."""
+    from partmanip_tpu_torch.envs import vision
+    env, cfg = make_env(PATHS[0], VISION_ENVS)
+    sim40, _ = random_rollout(env, cfg, 40, seed=5)
+    state, _ = env.reset(env.init_state(env.make_generator(9)))
+    cases = {f"drawer_{k}": ("open_drawer", v) for k, v in drawer_cases.items()}
+    cases["cube_rollout40"] = ("grasp_cube", vision.scene_prims(env, sim40))
+    cases["cube_reset"] = ("grasp_cube", vision.scene_prims(env, state.sim))
+    return cases, {task: mode_rigs(task) for task in ("open_drawer", "grasp_cube")}
+
+
+@torch.no_grad()
+def mode_fps_rows(prims, vol_rig):
+    """The rows B3 samples for depth_sparse, and those extract_surface_points
+    samples, from the volume fused from B2's coarse-to-fine depth of the
+    three views, as the env renders it."""
+    from partmanip_tpu_torch.ops import raymarch_cuda, tsdf
+    depth = raymarch_cuda.render_with(raymarch_cuda.march, prims, vol_rig.poses,
+                                      vol_rig.intrinsic, vol_rig.im_h, vol_rig.im_w,
+                                      coarse_to_fine=True)
+    vol = tsdf.integrate(vol_rig.tsdf_spec, depth)
+    return {"sparse_voxel": tsdf.sparse_points(vol_rig.tsdf_spec, vol)[0],
+            "surface_points": tsdf.surface_points(vol_rig.tsdf_spec, vol)}
+
+
+@torch.no_grad()
+def mode_kernel_check(cases, rigs):
+    """B2 against its plain version on the image rig (1 view, 72×128: a
+    ragged tile row, the coarse pass one ragged tile row of 18×32), exact
+    and coarse to fine, bit for bit; B3 against its plain version index for
+    index on the sparse_voxel rows ([16, 50³, 3], integer coordinates, the
+    far voxels at the origin) and the extract_surface_points rows ([16,
+    3·50²·49, 3]) of each case, its compacted lengths against
+    ``fps.compaction_plain``, with the cluster size it picked."""
+    from partmanip_tpu_torch.ops import fps, raymarch, raymarch_cuda
+    renders, sampled, failures = {}, {}, []
+    for name, (task, prims) in cases.items():
+        img_rig, vol_rig = rigs[task]
+        for c2f in (False, True):
+            tag = f"{name}_{'c2f' if c2f else 'exact'}"
+            args = (prims, img_rig.poses, img_rig.intrinsic, img_rig.im_h, img_rig.im_w)
+            got = raymarch_cuda.render_with(raymarch_cuda.march, *args, coarse_to_fine=c2f)
+            want = raymarch_cuda.render_with(raymarch.march_plain, *args, coarse_to_fine=c2f)
+            torch.cuda.synchronize()
+            e = renders[tag] = {**_depth_errors(got, want), "kept": kept_shares(img_rig, prims, c2f)}
+            if not (e["bit_equal"] == 1.0 and e["finite"]):
+                failures.append(f"B2 {tag}: {e}")
+        for kind, pts in mode_fps_rows(prims, vol_rig).items():
+            tag = f"{name}_{kind}"
+            _, want = fps.farthest_point_sampling_plain(pts, K_POINTS)
+            got, counts = fps.launch(pts, K_POINTS)
+            got = got.long()
+            kept = fps.compaction_plain(pts).sum(1)
+            torch.cuda.synchronize()
+            sampled[tag] = {
+                "rows": pts.shape[0], "points": pts.shape[1], "k": K_POINTS,
+                "cluster": fps.cluster_for(*pts.shape[:2], pts.device),
+                "index_match": float((got == want).float().mean()),
+                "rows_equal": int((got == want).all(dim=1).sum()),
+                "zero_points": float((pts == 0).all(-1).float().mean()),
+                "compacted": counts.tolist(), "compacted_equal": torch.equal(counts.long(), kept)}
+            if not (torch.equal(got, want) and sampled[tag]["compacted_equal"]):
+                failures.append(f"B3 {tag}: {sampled[tag]}")
+    img = rigs["grasp_cube"][0]
+    emit("kernel_check", variant="b2+b3 vision modes", num_envs=VISION_ENVS,
+         image=[img.num_view, img.im_h, img.im_w], k=K_POINTS,
+         tolerances={"render": "bit-equal", "fps": "index-exact"},
+         renders=renders, fps=sampled, failures=failures)
+    for tag, v in sampled.items():
+        print(f"kernel_check B3 {tag}: N {v['points']}, cluster {v['cluster']}, compacted "
+              f"{min(v['compacted'])}-{max(v['compacted'])}, index match {v['index_match']}",
+              flush=True)
+    if failures:
+        raise RuntimeError("kernel_check (b2, b3 at the vision modes' shapes) failed: "
+                           + "; ".join(failures))
+
+
+@torch.no_grad()
+def mode_timing(cases, rigs, repeats=20):
+    """B2 per coarse-to-fine render on grasp_cube's image rig (16 envs, 1 ×
+    72×128) and B3 per call on the sparse_voxel rows of open_drawer's
+    rollout scene ([16, 50³, 3]), by CUDA events, beside their plain
+    versions and their bounds (B2's over the culled march as this input
+    needs it, B3's over the compacted rows)."""
+    from partmanip_tpu_torch.ops import fps, raymarch, raymarch_cuda
+    img_rig = rigs["grasp_cube"][0]
+    prims = cases["cube_rollout40"][1]
+    args = (prims, img_rig.poses, img_rig.intrinsic, img_rig.im_h, img_rig.im_w)
+    render = raymarch_cuda.render_with
+    for _ in range(3):
+        render(raymarch_cuda.march, *args, coarse_to_fine=True)
+    E, S, G = VISION_ENVS, prims.sphere_radius.shape[1], prims.box_pos.shape[1]
+    V, H, W = img_rig.num_view, img_rig.im_h, img_rig.im_w
+    mask_bytes = sum(E * rays.cos_t.numel() * (S + G) for _, rays in render_passes(img_rig, True))
+    prim_bytes = E * (4 * S + 11 * G) * 4
+    nbytes = (2 * prim_bytes + mask_bytes + (3 * V * H * W // 16 + E * V * H * W // 16) * 4
+              + (3 * V * H * W + 2 * E * V * H * W) * 4)
+    b2 = {"image": [V, H, W], "num_envs": E,
+          "ms": _timed(lambda: render(raymarch_cuda.march, *args, coarse_to_fine=True), repeats),
+          "plain_ms": _timed(lambda: render(raymarch.march_plain, *args, coarse_to_fine=True), 3),
+          "library_ms": None, **_bound(b2_operations(img_rig, prims, True), nbytes)}
+    pts = mode_fps_rows(cases["drawer_rollout40"][1], rigs["open_drawer"][1])["sparse_voxel"]
+    for _ in range(2):
+        fps.farthest_point_sampling_cuda(pts, K_POINTS)
+    _, counts = fps.launch(pts, K_POINTS)
+    B, N, _ = pts.shape
+    b3 = {"rows": B, "points": N, "k": K_POINTS, "cluster": fps.cluster_for(B, N, pts.device),
+          "compacted_points": counts.tolist(),
+          "ms": _timed(lambda: fps.farthest_point_sampling_cuda(pts, K_POINTS), repeats),
+          "plain_ms": _timed(lambda: fps.farthest_point_sampling_plain(pts, K_POINTS), 3),
+          "library_ms": None,
+          **_bound(8.0 * K_POINTS * sum(counts.tolist()), B * N * 12 + B * K_POINTS * 4)}
+    emit("timing", variant="b2 at 1 x 72x128", **b2)
+    emit("timing", variant="b3 at N = 125,000 (sparse voxels)", **b3)
+    return b2, b3
+
+
+def resnet34_macs(in_channels, h=72, w=128, proprio=25, out=10):
+    """Multiply-adds of one ResNet / depthResNet forward, counted from its
+    shapes: every convolution (output pixels × output channels × kernel
+    area × input channels), then the three dense layers."""
+    from partmanip_tpu_torch.models.networks import ResNet34Backbone
+    side = lambda n, k, s, p: (n + 2 * p - k) // s + 1
+    h, w = side(h, 7, 2, 3), side(w, 7, 2, 3)
+    macs = {"stem": h * w * 64 * 49 * in_channels}
+    h, w = side(h, 3, 2, 1), side(w, 3, 2, 1)
+    c, convs = 64, 0
+    for features, n, stride in ResNet34Backbone.STAGES:
+        for i in range(n):
+            s_ = stride if i == 0 else 1
+            ho, wo = side(h, 3, s_, 1), side(w, 3, s_, 1)
+            convs += ho * wo * features * 9 * (c + features)
+            if c != features or s_ != 1:
+                convs += ho * wo * features * c
+            h, w, c = ho, wo, features
+    macs["blocks"] = convs
+    macs["dense"] = (512 + proprio) * 128 + 128 * 32 + 32 * out
+    return macs
+
+
+@torch.no_grad()
+def buffer_fit(runner, proprio, seed):
+    """The DAgger loss over every row of the runner's buffer, of its trained
+    student and of the same student at its seeded start (``init(seed)``,
+    the seed of the run's exp_name)."""
+    from partmanip_tpu_torch.models.actor_critic import ActorCritic
+    buf = runner.last_ts.buffer
+    n = int(buf.size.item())
+    start = ActorCritic(runner.stu_num_obs, runner.num_actions, runner.model_cfg,
+                        proprio_shape=proprio).to(runner.device)
+    start.init(seed)
+
+    def loss(net):
+        total = 0.0
+        for a in range(0, n, 256):
+            rows = buf.stu_obs[a:a + 256].float()
+            label = runner._label(buf.tea_obs[a:a + 256])
+            total += float(((label - net.update_act(rows)) ** 2).sum())
+        return total / (n * runner.num_actions)
+    return {"rows": n, "trained": loss(runner.student), "seeded_start": loss(start)}
+
+
+def cube_teacher(launches_total):
+    """The grasp_cube teacher: TEACHER_ITERATIONS PPO iterations of the
+    port's own trainer at ppo.yaml's 2048 envs, its checkpoint saved at the
+    last (B1a for every physics step: the first reset, then n_steps a
+    iteration).  Returns the checkpoint's path."""
+    import train_torch
+    from partmanip_tpu_torch.utils import cuda_lib
+    K = TEACHER_ITERATIONS
+    cuda_lib.reset_launch_counts()
+    t0 = time.time()
+    runner = train_torch.main(CUBE_FLAGS + [
+        "--algo.max_iterations", str(K), "--algo.save_frequence", str(K),
+        "--exp_name", "chip_smoke_cube_teacher_seed13", "--log.mode", "screen"])
+    torch.cuda.synchronize()
+    launches = cuda_lib.launch_counts()
+    for k, v in launches.items():
+        launches_total[k] = launches_total.get(k, 0) + v
+    path = os.path.join(runner.save_ckpt_dir, f"model_{K}.ckpt")
+    expected = {"b1a": 1 + K * runner.n_steps * runner.env.control_freq_inv,
+                "b1b": 0, "b1c": 0, "b2": 0, "b3": 0}
+    bad = [k for k, v in runner.last_log.items() if k.startswith("Train/") and not np.isfinite(v)]
+    emit("vision_modes_teacher", iterations=runner.curr_iter, num_envs=runner.env.num_envs,
+         kernel_launches=launches, expected_launches=expected, wall_seconds=time.time() - t0,
+         checkpoint=os.path.relpath(path, ROOT), non_finite=bad)
+    if (launches != expected or bad or not os.path.exists(path)
+            or runner.env.num_envs != NUM_ENVS or runner.curr_iter != K):
+        raise RuntimeError(f"vision_modes teacher: launches {launches} (expected {expected}), "
+                           f"non-finite {bad}, checkpoint {os.path.exists(path)}")
+    return path
+
+
+def vision_modes():
+    """The remaining vision students through the CLI entry point at
+    dagger.yaml's defaults (16 envs, buf_size 1200, minibatch 2048 capped
+    to 5 chunks of minibatch_cap 256, 2 × 16 Adam steps): depth_img +
+    depthResNet and rgb_img + ResNet on grasp_cube, taught by a PPO
+    checkpoint the port writes here (:func:`cube_teacher`), and
+    depth_sparse + PointNet on open_drawer with the committed expert;
+    MODE_ITERATIONS iterations and one evaluation each.  Gates: launches
+    equal to the printed formulas, finite Train/* and Val/*, the buffer's
+    rows, the trained student's loss over every buffer row below its seeded
+    start's (:func:`buffer_fit`; at dagger.yaml's lr 5e-5 five iterations
+    do not halve Train/dagger_loss: on the CPU with 16-row minibatches
+    rgb_img fell to 0.68 and depth_img to 0.97 of iteration 1's, so its
+    fall is printed, not gated), and each ResNet's forward and weight
+    gradients on the card, on 8 buffer rows, within RESNET_TOL of the
+    CPU's run on the card run's ReLU and max-pool branches, where the TF32
+    control must not be (:func:`net_card_vs_cpu`).  Reports s per iteration, the split into collection and
+    update, the ResNet update's TFLOP/s, one evaluation step taken apart
+    and the card's idle share.  Returns the phase's launches per kernel."""
+    launches_total = {}
+    teacher = cube_teacher(launches_total)
+    runs = [("grasp_cube", mode, net, teacher) for mode, net in IMAGE_STUDENTS]
+    runs.append(("open_drawer", "depth_sparse", "PointNet", DRAWER_CKPT))
+    failures = []
+    for task, mode, network, tea in runs:
+        runner, out = _dagger_run(task, mode, MODE_ITERATIONS, [], launches_total,
+                                  teacher=tea, network=network, seed=29)
+        out["breakdown"] = _iteration_split(
+            runner, reps=1, iteration_s=out["seconds_per_iteration_median_after_first"],
+            profile_epochs=1 if network in ("ResNet", "depthResNet") else None)
+        out["step_breakdown"] = student_step_breakdown(runner)
+        loss = out["dagger_loss"]
+        out["loss_fall"] = {"iteration_1": loss[0], "mean_last_3": float(np.mean(loss[-3:])),
+                            "ratio": float(np.mean(loss[-3:])) / loss[0]}
+        proprio = runner.env.num_obs["proprio_state"] if runner.add_proprio_obs else 0
+        out["buffer_fit"] = buffer_fit(runner, proprio, seed=29)
+        if network in ("ResNet", "depthResNet"):
+            macs = resnet34_macs(runner.student.actor.in_channels, proprio=proprio,
+                                 out=runner.num_actions)
+            samples = runner.n_updates * runner.num_mini_batches * runner.minibatch_sizes(
+                runner.last_ts.buffer.stu_obs.shape[0])[0]
+            # forward + backward, but no input gradient of the stem (its input is data)
+            flop = samples * (3 * sum(macs.values()) - macs["stem"]) * 2
+            out["update_work"] = {"macs_per_sample_forward": macs,
+                                  "gmacs_per_sample": sum(macs.values()) / 1e9,
+                                  "samples_per_iteration": samples,
+                                  "tflop_per_iteration": flop / 1e12,
+                                  "tflop_per_s": flop / out["breakdown"]["update_s"] / 1e12}
+            rows = runner.last_ts.buffer.stu_obs[:8].float()
+            out["card_vs_cpu"] = net_card_vs_cpu(rows, dict(runner.model_cfg), proprio,
+                                                 RESNET_TOL)
+        emit(f"vision_modes_{mode}", **out)
+        b, st = out["breakdown"], out["step_breakdown"]
+        work = out.get("update_work")
+        print(f"vision_modes {mode} ({network}, {task}): "
+              f"{out['seconds_per_iteration_median_after_first']:.3f} s an iteration (collect "
+              f"{b['collect_s']:.3f}, update {b['update_s']:.3f}"
+              + (f", {work['tflop_per_s']:.1f} TFLOP/s" if work else "")
+              + f"); card idle {b.get('device_idle_share')}; buffer {out['buffer_gb']:.3f} GB; "
+              f"loss {loss[0]:.4g} at 1, {out['loss_fall']['mean_last_3']:.4g} over the last 3; "
+              f"buffer fit {out['buffer_fit']['trained']:.4g} (seeded start "
+              f"{out['buffer_fit']['seeded_start']:.4g}); "
+              f"step {st['parts']}; launches {out['kernel_launches']} "
+              f"({out['launch_formula']})", flush=True)
+        if "card_vs_cpu" in out:
+            c = out["card_vs_cpu"]
+            print(f"vision_modes {mode}: {network} card vs CPU in f32 on the card's branches "
+                  f"{c['worst_f32']:.3g} at {c['worst_f32_at']} (TF32 control "
+                  f"{c['worst_tf32_control']:.3g}, must exceed {RESNET_TOL:g}); without the "
+                  f"branches matched {c['worst_unmatched_f32']:.3g} at "
+                  f"{c['worst_unmatched_f32_at']}", flush=True)
+            if c["worst_f32"] > RESNET_TOL or not c["worst_tf32_control"] > RESNET_TOL:
+                failures.append(f"{mode}: card vs CPU {c}")
+        w = out["width"]
+        img = (72, 128, True) if "img" in mode else (288, 512, True)
+        if (out["kernel_launches"] != out["expected_launches"] or out["non_finite"]
+                or out["cur_buf_size"] != VISION_ENVS * MODE_ITERATIONS
+                or w[:2] != (VISION_ENVS, (VISION_ENVS, runner.stu_num_obs))
+                or w[2:9] != ("torch.bfloat16", 19_200, 1280, 256, 2, 16, network)
+                or w[-3:] != img or runner.curr_iter != MODE_ITERATIONS):
+            failures.append(f"{mode}: launches {out['kernel_launches']} (expected "
+                            f"{out['expected_launches']}), non-finite {out['non_finite']}, "
+                            f"buffer {out['cur_buf_size']}, width {w}")
+        fit = out["buffer_fit"]
+        if not fit["trained"] < fit["seeded_start"]:
+            failures.append(f"{mode}: the trained student fits its buffer no better than "
+                            f"its seeded start: {fit}")
+        del runner
+    emit("vision_modes", launches=launches_total, failures=failures)
+    if failures:
+        raise RuntimeError("vision_modes failed: " + "; ".join(failures))
+    return launches_total
+
+
 def run_vision_path(phases, ptxas):
     """Every phase of the vision path; returns its two entries of the
     ``kernels`` line and the launches of DAgger training (or None)."""
@@ -1812,15 +2230,19 @@ def run_vision_path(phases, ptxas):
     cfg, _ = process_cfgs(VISION_FLAGS)
     rig = vision.VisionRig(cfg["task"]["cam"], cfg["task"]["obs_mode"]["tsdf"], "depth_pc")
     worst, launches, timing = {}, {}, {"b2": {}, "b3": {}}
-    cases = vision_cases() if ("kernel_check" in phases or "timing" in phases) else None
+    checked = "kernel_check" in phases or "timing" in phases
+    cases = vision_cases() if checked else None
+    mode_case = mode_cases(cases) if checked else None
     if "kernel_check" in phases:
         worst["b2"], worst["b3"] = vision_kernel_check(rig, cases)
+        mode_kernel_check(*mode_case)
     if "small_reference" in phases:
         vision_small_reference()
     if "main_path" in phases:
         launches = vision_main_path()
     if "timing" in phases:
         timing["b2"], timing["b3"] = vision_timing(rig, cases["rollout40"])
+        timing["b2"]["at_vision_modes"], timing["b3"]["at_vision_modes"] = mode_timing(*mode_case)
         vision_step_breakdown()
     train = vision_dagger_train() if "dagger_train" in phases else {}
     return [{**VISION_KERNELS[k], "route": "cuda", "launches": launches.get(k),
@@ -1830,7 +2252,7 @@ def run_vision_path(phases, ptxas):
 
 
 PHASES = ("kernel_check", "small_reference", "main_path", "timing", "train",
-          "dagger_train", "dagger_loop", "tsdf_student")
+          "dagger_train", "dagger_loop", "tsdf_student", "vision_modes")
 
 
 def make_envs():
@@ -1889,12 +2311,17 @@ def main(argv=None):
     vision_kernels, train = run_vision_path(args.only, ptxas)
     loop = dagger_loop() if "dagger_loop" in args.only else {}
     tsdf = tsdf_student() if "tsdf_student" in args.only else {}
+    modes = vision_modes() if "vision_modes" in args.only else {}
     next(k for k in kernels if k["name"] == "fused_inner_step_b1b").update(
         launches_dagger_train=train.get("b1b"), launches_dagger_loop=loop.get("b1b"),
         launches_tsdf_student=tsdf.get("b1b"))
     for k, name in zip(vision_kernels, ("b2", "b3")):
         k["launches_tsdf_student"] = tsdf.get(name)
     kernels += vision_kernels
+    for k in kernels:
+        name = k["name"].rsplit("_", 1)[1]
+        if name != "b1c":
+            k["launches_vision_modes"] = modes.get(name)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -159,7 +159,7 @@ class PPO:
         if self.save_pose or self.save_video:
             raise NotImplementedError(
                 "save_pose / save_video are not ported yet (ROADMAP Queue A: "
-                "renderer, tooling)")
+                "tooling)")
 
         self.lr_schedule = cfg["lr_schedule"]
         if self.lr_schedule not in ("fixed", "linear_decay", "step_decay"):

@@ -10,13 +10,16 @@ observation modes:
 * success: obj within 0.025 m of (0, 0, 0.2) while the gripper is at the obj;
 * random reset: xy ± 0.15, random yaw.
 
-Of the vision observation modes, the two TSDF volumes are ported
-(``mesh_tsdf``, ``depth_tsdf``: :mod:`vision`, with grasp_cube's own
-``tsdf`` block, size 0.5 m at res 50; + the 25 proprio dims with
-``add_proprio_obs``); the others raise ``NotImplementedError``.  With a state
-learn mode ``num_obs`` stays as the YAML says (37): the JAX package's
-``_init_vision`` adds the proprio dims to it, though its observation
-concatenates none (ROADMAP Queue C).
+Every vision observation mode is ported (:mod:`vision`): ``depth_img``
+(9216) and ``rgb_img`` (27648), one 72×128 view; ``depth_pc`` (3072) and
+``depth_sparse`` (4096), three 288×512 views; ``mesh_tsdf`` and
+``depth_tsdf`` with grasp_cube's own ``tsdf`` block (size 0.5 m at res 50,
+res³); + the 25 proprio dims with ``add_proprio_obs``.  The sizes are the
+YAML's, as in the JAX package.  With a state learn mode ``num_obs`` stays
+as the YAML says (37): the JAX package's ``_init_vision`` adds the proprio
+dims to it, though its observation concatenates none (ROADMAP Queue C).
+``scene_pose`` and ``save_video`` are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ GOAL_THRESH = 0.025
 SUCCESS_POS = (0.0, 0.0, 0.2)
 CUBE_HALF = 0.025           # obj z0 0.025 ⇒ 5 cm cube
 CUBE_DENSITY = 1000.0
-TSDF_MODES = ("mesh_tsdf", "depth_tsdf")
 
 
 class GraspCubeEnv:
@@ -58,17 +60,9 @@ class GraspCubeEnv:
         self.random_reset = cfg["random_reset"]
         self.learn_input_mode = cfg.get("learn_input_mode", "normal_state")
         self.add_proprio_obs = cfg.get("add_proprio_obs", False)
-        if self.learn_input_mode not in STATE_OBS_MODES + TSDF_MODES:
-            vision.check_mode(self.learn_input_mode)
-            raise NotImplementedError(
-                f"obs_mode {self.learn_input_mode!r}: grasp_cube observes "
-                f"the TSDF modes {TSDF_MODES} only; the renderer's point "
-                f"cloud serves open_drawer (ROADMAP Queue A: remaining "
-                f"vision modes)")
         if cfg.get("save_video"):
             raise NotImplementedError(
-                "save_video needs the RGB renderer, which is not ported yet "
-                "(ROADMAP Queue A: remaining vision modes)")
+                "save_video is not ported yet (ROADMAP Queue A: tooling)")
 
         rcfg = cfg["robot"]
         mobile = "mobile" in rcfg["assetFile"]
@@ -127,9 +121,8 @@ class GraspCubeEnv:
         self._goal_t = dev(SUCCESS_POS)
 
     def _init_vision(self, cfg):
-        """Vision rig + flattened obs sizes of a TSDF learn mode (≙ the JAX
-        env's ``_init_vision``: resolution³ dims, + proprio with
-        ``add_proprio_obs``)."""
+        """Vision rig + flattened obs size of a vision learn mode
+        (:func:`vision.obs_size`)."""
         mode = self.learn_input_mode
         self.vision_rig = None
         if mode in STATE_OBS_MODES:
@@ -137,9 +130,7 @@ class GraspCubeEnv:
         self.vision_rig = vision.VisionRig(
             cfg["cam"], cfg["obs_mode"]["tsdf"], mode,
             im_scale=cfg.get("im_scale", 1), device=self.device)
-        self.num_obs[mode] = int(cfg["obs_mode"]["tsdf"]["resolution"]) ** 3
-        if self.add_proprio_obs:
-            self.num_obs[mode] += self.num_obs["proprio_state"]
+        self.num_obs[mode] = vision.obs_size(cfg, mode, self.add_proprio_obs)
 
     def _vision_obs(self, state: EnvState, obs: Dict):
         if self.vision_rig is None:
@@ -224,6 +215,11 @@ class GraspCubeEnv:
         state = base.init_env_state(sim, E, state.rng)
         obs, _ = self._observations(state)
         return state, self._vision_obs(state, obs)
+
+    def scene_pose(self, state: EnvState):
+        raise NotImplementedError(
+            "scene_pose (offline re-rendering dumps) is not ported yet "
+            "(ROADMAP Queue A: tooling)")
 
     # ------------------------------------------------------------------
     # observation / reward

@@ -23,11 +23,13 @@ Every cabinet joint is simulated; only the per-env target dof feeds
 reward/obs.  ``asset.mesh_handle`` swaps the handle bars' collision boxes
 for mesh geoms, baked to SDF grids on the env's device (cached next to the
 meshes) and collided by the engine's grid branch (kernel B1c).  Of the
-vision observation modes, ``depth_pc``, ``depth_tsdf`` and ``mesh_tsdf``
-are ported (:mod:`vision`: the rig is built by ``_init_vision``, the
-observation added by ``_vision_obs`` after every reset and step); the other
-vision modes and ``scene_pose`` are not ported yet and raise
-``NotImplementedError``.
+vision observation modes, ``depth_pc``, ``depth_sparse``, ``depth_tsdf``
+and ``mesh_tsdf`` are ported (:mod:`vision`: the rig is built by
+``_init_vision``, the observation added by ``_vision_obs`` after every
+reset and step); ``open_drawer.yaml`` gives no size for ``depth_img`` or
+``rgb_img``, so those raise ``ValueError`` naming the key (the JAX
+package's DAgger fails at ``env.num_obs[mode]``).  ``scene_pose`` is not
+ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -70,11 +72,10 @@ class OpenDrawerEnv:
         self.add_proprio_obs = cfg.get("add_proprio_obs", False)
         self.obj_scale = cfg["asset"].get("obj_scale", 0.5)
         if self.learn_input_mode not in STATE_OBS_MODES:
-            vision.check_mode(self.learn_input_mode)
+            vision.obs_size(cfg, self.learn_input_mode, self.add_proprio_obs)
         if cfg.get("save_video"):
             raise NotImplementedError(
-                "save_video needs the RGB renderer, which is not ported yet "
-                "(ROADMAP Queue A: remaining vision modes)")
+                "save_video is not ported yet (ROADMAP Queue A: tooling)")
 
         rcfg = cfg["robot"]
         mobile = "mobile" in rcfg["assetFile"]
@@ -205,20 +206,16 @@ class OpenDrawerEnv:
         self._obj_ids_t = dev(obj_ids, torch.int64)
 
     def _init_vision(self, cfg):
-        """Vision rig + flattened obs sizes (≙ the JAX env's
-        ``_init_vision``: the TSDF modes get resolution³ dims, + proprio with
-        ``add_proprio_obs``)."""
+        """Vision rig + flattened obs size of a vision learn mode
+        (:func:`vision.obs_size`; open_drawer's proprio_state is 0)."""
         mode = self.learn_input_mode
         self.vision_rig = None
-        if mode not in STATE_OBS_MODES:
-            self.vision_rig = vision.VisionRig(
-                cfg["cam"], cfg["obs_mode"]["tsdf"], mode,
-                im_scale=cfg.get("im_scale", 1), device=self.device)
-        if "tsdf" in mode:
-            self.num_obs[mode] = int(cfg["obs_mode"]["tsdf"]["resolution"]) ** 3
-        if self.add_proprio_obs and mode in self.num_obs \
-                and mode != "proprio_state":
-            self.num_obs[mode] += self.num_obs["proprio_state"]
+        if mode in STATE_OBS_MODES:
+            return
+        self.vision_rig = vision.VisionRig(
+            cfg["cam"], cfg["obs_mode"]["tsdf"], mode,
+            im_scale=cfg.get("im_scale", 1), device=self.device)
+        self.num_obs[mode] = vision.obs_size(cfg, mode, self.add_proprio_obs)
 
     def _vision_obs(self, state: EnvState, obs: Dict):
         if self.vision_rig is None:
@@ -313,7 +310,7 @@ class OpenDrawerEnv:
     def scene_pose(self, state: EnvState):
         raise NotImplementedError(
             "scene_pose (offline re-rendering dumps) is not ported yet "
-            "(ROADMAP Queue A: renderer, tooling)")
+            "(ROADMAP Queue A: tooling)")
 
     # ------------------------------------------------------------------
     # observation / reward

@@ -1,19 +1,26 @@
 """Vision observation rig shared by the tasks (PyTorch).
 
 Counterpart of ``partmanip_tpu/envs/vision.py``: a hemisphere rig (3 views
-of 288×512 for the volumetric modes), SDF-raymarched depth and the derived
-observation.  Ported modes:
+of 288×512 for the volumetric modes, 1 view of 72×128 for the image modes),
+SDF-raymarched depth (kernel B2 on the GPU, coarse to fine and culled as
+the rig says) and the derived observation modes, all ported:
 
-* ``depth_pc`` — unproject + workspace crop + FPS-1024 → 3072 (kernels B2
-  and B3 on the GPU);
-* ``depth_tsdf`` — multi-view TSDF fusion of the rendered depth (kernel B2
-  on the GPU) → res³;
+* ``depth_tsdf`` — multi-view TSDF fusion of the rendered depth → res³;
+* ``depth_pc`` — unproject + workspace crop + FPS-1024 (kernel B3 on the
+  GPU) → 3072;
+* ``depth_sparse`` — the fused volume's near-surface voxels, FPS-1024 of
+  their integer coordinates (B3) with the TSDF value at each → [1024, 4]
+  → 4096;
+* ``depth_img`` — the single view's raw depth, 72×128 → 9216;
+* ``rgb_img`` — Lambertian-shaded per-segment albedo at the depth image's
+  hit points (``raymarch.render_rgb``, plain PyTorch), channel-first
+  [3, 72, 128] → 27648;
 * ``mesh_tsdf`` — the scene's TSDF sampled analytically from the collision
   primitives at the voxel centres, ``clip(scene_sdf / sdf_trunc, -1, 1)``
   → res³; it renders nothing, so it launches no kernel.
 
-The other modes (``depth_sparse``, ``depth_img``, ``rgb_img``) raise
-``NotImplementedError`` (ROADMAP Queue A: remaining vision modes).
+Another mode raises ``NotImplementedError`` at its first observation, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,9 +34,8 @@ from ..sim import contact as contact_lib
 from ..sim import engine, kinematics
 from ..utils import camera
 
+IMG_H, IMG_W = 288 // 4, 512 // 4
 VOL_H, VOL_W = 288, 512
-
-PORTED_MODES = ("depth_pc", "depth_tsdf", "mesh_tsdf")
 # ``mesh_tsdf`` queries the grid in about N // GRID_CHUNK chunks of points
 # (the JAX package's count), so that its [E, chunk, G] temporaries stay
 # bounded: at 16 envs × 50³ points × 25 boxes one f32 temporary of the
@@ -37,24 +43,38 @@ PORTED_MODES = ("depth_pc", "depth_tsdf", "mesh_tsdf")
 GRID_CHUNK = 16384
 
 
-def check_mode(mode: str) -> None:
-    """Raise for a vision observation mode that is not ported yet."""
-    if mode not in PORTED_MODES:
-        raise NotImplementedError(
-            f"obs_mode {mode!r} is not ported yet; the port renders "
-            f"{', '.join(PORTED_MODES)} (ROADMAP Queue A: remaining vision "
-            f"modes)")
+def obs_size(task_cfg: dict, mode: str, add_proprio_obs: bool) -> int:
+    """The flattened size of a vision learn mode, as the JAX envs'
+    ``_init_vision`` sets it: res³ for the TSDF modes, the YAML's
+    ``obs_mode.<mode>`` for the others, + ``obs_mode.proprio_state`` with
+    ``add_proprio_obs``.  A mode the task's YAML gives no size for raises
+    ``ValueError`` naming the key (the JAX package fails later, at
+    ``env.num_obs[mode]``); no size is invented."""
+    sizes = task_cfg["obs_mode"]
+    if "tsdf" in mode:
+        n = int(sizes["tsdf"]["resolution"]) ** 3
+    elif mode in sizes:
+        n = int(sizes[mode])
+    else:
+        raise ValueError(
+            f"obs_mode {mode!r}: the {task_cfg.get('task', 'task')} YAML gives no "
+            f"size for it (no key obs_mode.{mode})")
+    return n + (int(sizes["proprio_state"]) if add_proprio_obs else 0)
 
 
 class VisionRig:
     def __init__(self, cam_cfg: dict, tsdf_cfg: dict, learn_input_mode: str,
                  im_scale: int = 1, device="cpu"):
-        """im_scale > 1 shrinks the volumetric render (tests); ``device``
-        holds the voxel centres ``mesh_tsdf`` queries (the env's)."""
-        check_mode(learn_input_mode)
+        """im_scale > 1 shrinks the volumetric render (tests; the image
+        modes keep their 72×128); ``device`` holds the voxel centres
+        ``mesh_tsdf`` queries (the env's)."""
         self.mode = learn_input_mode
-        self.num_view = 3
-        self.im_h, self.im_w = VOL_H // im_scale, VOL_W // im_scale
+        if "img" in learn_input_mode:
+            self.num_view = 1
+            self.im_h, self.im_w = IMG_H, IMG_W
+        else:
+            self.num_view = 3
+            self.im_h, self.im_w = VOL_H // im_scale, VOL_W // im_scale
         self.poses = camera.gen_camera_poses(
             cam_cfg["look_at"], cam_cfg["radius"], num_views=self.num_view)
         self.intrinsic = camera.camera_intrinsics(self.im_w, self.im_h)
@@ -127,6 +147,17 @@ def render_obs(env, rig: VisionRig, sim: engine.SceneState) -> Dict:
         return {rig.mode: mesh_tsdf(rig, prims)}
     depth = render_depth(rig, prims)
     if rig.mode == "depth_tsdf":
-        return {rig.mode: tsdf_lib.integrate(rig.tsdf_spec, depth).reshape(E, -1)}
-    return {rig.mode: tsdf_lib.depth_to_pointcloud(
-        rig.tsdf_spec, depth, k=1024).reshape(E, -1)}
+        out = tsdf_lib.integrate(rig.tsdf_spec, depth)
+    elif rig.mode == "depth_pc":
+        out = tsdf_lib.depth_to_pointcloud(rig.tsdf_spec, depth, k=1024)
+    elif rig.mode == "depth_sparse":
+        out = tsdf_lib.sparse_voxel(rig.tsdf_spec, depth, k=1024)
+    elif rig.mode == "depth_img":
+        out = depth[:, 0]
+    elif rig.mode == "rgb_img":
+        rgb = raymarch.render_rgb(prims, rig.poses[:1], rig.intrinsic, rig.im_h,
+                                  rig.im_w, depth=depth[:, :1])
+        out = rgb[:, 0].permute(0, 3, 1, 2)          # [E, 3, H, W], channel-first
+    else:
+        raise NotImplementedError(rig.mode)
+    return {rig.mode: out.reshape(E, -1)}

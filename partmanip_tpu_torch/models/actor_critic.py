@@ -19,7 +19,7 @@ import math
 import torch
 import torch.nn as nn
 
-from .networks import make_network
+from .networks import load_resnet34_pretrained, make_network
 
 
 class ActorCritic(nn.Module):
@@ -45,11 +45,18 @@ class ActorCritic(nn.Module):
             (num_actions,), math.log(max(self.action_std, 1e-8))))
 
     def init(self, seed: int) -> None:
-        """(Re-)initialize all parameters from ``seed``."""
+        """(Re-)initialize all parameters from ``seed``; a ResNet /
+        depthResNet whose network config names a ``pretrained`` ``.npz``
+        (``tools/resnet_convert.py``) then takes its backbone from it, in
+        the actor and the critic."""
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(int(seed))
             self.actor.reset_parameters()
             self.critic.reset_parameters()
+        pre = self.net_cfg.get("pretrained")
+        if pre and self.net_cfg["name"] in ("ResNet", "depthResNet"):
+            load_resnet34_pretrained(self.actor, pre)
+            load_resnet34_pretrained(self.critic, pre)
         with torch.no_grad():
             self.log_std.fill_(math.log(max(self.action_std, 1e-8)))
 

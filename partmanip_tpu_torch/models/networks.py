@@ -1,12 +1,12 @@
 """Policy/value networks (``torch.nn``).
 
-Counterpart of ``partmanip_tpu/models/networks.py`` for the ``MLP``,
-``PointNet``, ``Conv3DNet`` and ``PoolConv3DNet`` architectures: activation
-from config, orthogonal init of the dense layers with the stable-baselines
-gain schedule (√2 hidden, 0.01 policy head, 1 value head), zero biases; the
-3-D convolutions take flax's default init (LeCun normal, truncated at two
-standard deviations).  The ResNet architectures (ResNet, depthResNet) are
-not ported yet.
+Counterpart of ``partmanip_tpu/models/networks.py``: ``MLP``, ``PointNet``,
+``Conv3DNet``, ``PoolConv3DNet``, and the image students ``ResNet`` (RGB)
+and ``depthResNet`` (depth) on a ResNet-34 backbone.  Activation from
+config, orthogonal init of the dense layers with the stable-baselines gain
+schedule (√2 hidden, 0.01 policy head, 1 value head), zero biases; the
+convolutions take flax's default init (LeCun normal, truncated at two
+standard deviations).
 
 The 3-D nets hold their volumes as NCDHW where the JAX package's are NDHWC;
 ``vol.reshape(b, 1, r, r, r)`` keeps its voxel order, and the conv features
@@ -28,9 +28,6 @@ from typing import Callable
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-
-UNPORTED_NETWORKS = ("ResNet", "depthResNet")
-
 
 def get_activation(name: str) -> Callable:
     return {
@@ -151,17 +148,18 @@ class PointNet(nn.Module):
         return self.head(h)
 
 
-def _init_conv(layer: nn.Conv3d) -> None:
+def _init_conv(layer) -> None:
     """flax's default conv init: LeCun normal (variance 1 / fan_in, truncated
-    at ±2σ and rescaled to keep the variance), zero bias; drawn on the CPU
-    like :func:`_init_dense`."""
+    at ±2σ and rescaled to keep the variance), zero bias where the layer has
+    one; drawn on the CPU like :func:`_init_dense`."""
     w = torch.empty(layer.weight.shape)
     fan_in = w[0].numel()
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std)
     with torch.no_grad():
         layer.weight.copy_(w)
-        layer.bias.zero_()
+        if layer.bias is not None:
+            layer.bias.zero_()
 
 
 def _cube_side(n: int, what: str) -> int:
@@ -267,14 +265,198 @@ class PoolConv3DNet(nn.Module):
         return self.head(self.act(self.hidden(self.stack(x))))
 
 
+class FrozenBatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(use_running_average=True)``, the only way the JAX
+    package applies its ResNets (every ``apply`` there leaves ``train`` at
+    False): ``(x − mean) · (rsqrt(var + 1e-5) · scale) + bias`` per channel
+    of an NCHW tensor, in flax's order of operations.  No mode flag changes
+    it: ``.train()`` neither normalises by the batch nor updates ``mean`` /
+    ``var``.  All four are parameters, because the JAX package's optimizer
+    steps them all: its gradient is taken over the whole variables dict,
+    ``batch_stats`` included, and the statistics enter the output."""
+
+    EPS = 1e-5
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.mean = nn.Parameter(torch.zeros(channels))
+        self.var = nn.Parameter(torch.ones(channels))
+
+    def reset_parameters(self):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def forward(self, x):
+        view = lambda t: t.view(1, -1, 1, 1)
+        mul = torch.rsqrt(self.var + self.EPS) * self.scale
+        return (x - view(self.mean)) * view(mul) + view(self.bias)
+
+
+def _conv2d(c_in, c_out, k, stride, padding=0):
+    """A bias-free 2-D conv left uninitialised (``reset_parameters`` of the
+    network draws every weight, so PyTorch's own init of 21 M weights would
+    be thrown away)."""
+    return nn.utils.skip_init(nn.Conv2d, c_in, c_out, k, stride, padding=padding, bias=False)
+
+
+class _BasicBlock(nn.Module):
+    """3×3 conv (stride s) → BN → relu → 3×3 conv → BN, plus the input (a
+    1×1 conv of stride s → BN where the width or the stride changes), relu.
+    Paddings as flax's: explicit 1 for the 3×3 convs; ``SAME`` for the 1×1,
+    which pads nothing at any input size."""
+
+    def __init__(self, c_in: int, features: int, stride: int):
+        super().__init__()
+        self.conv0 = _conv2d(c_in, features, 3, stride, padding=1)
+        self.bn0 = FrozenBatchNorm(features)
+        self.conv1 = _conv2d(features, features, 3, 1, padding=1)
+        self.bn1 = FrozenBatchNorm(features)
+        self.down = c_in != features or stride != 1
+        if self.down:
+            self.conv2 = _conv2d(c_in, features, 1, stride)
+            self.bn2 = FrozenBatchNorm(features)
+
+    def forward(self, x):
+        y = F.relu(self.bn0(self.conv0(x)))
+        y = self.bn1(self.conv1(y))
+        if self.down:
+            x = self.bn2(self.conv2(x))
+        return F.relu(x + y)
+
+
+class ResNet34Backbone(nn.Module):
+    """7×7 conv, stride 2, padding 3 → BN → relu → 3×3 max pool, stride 2,
+    padding 1 (−inf) → 3 / 4 / 6 / 3 basic blocks of 64 / 128 / 256 / 512
+    (the first of each later stage of stride 2) → global average pool →
+    [B, 512].  NCHW shapes throughout (in channels-last memory on the
+    GPU)."""
+
+    STAGES = ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2))
+
+    def __init__(self, in_channels: int = 3):
+        super().__init__()
+        self.conv0 = _conv2d(in_channels, 64, 7, 2, padding=3)
+        self.bn0 = FrozenBatchNorm(64)
+        blocks, c = [], 64
+        for features, n, stride in self.STAGES:
+            for i in range(n):
+                blocks.append(_BasicBlock(c, features, stride if i == 0 else 1))
+                c = features
+        self.blocks = nn.ModuleList(blocks)
+
+    def reset_parameters(self):
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                _init_conv(m)
+            elif isinstance(m, FrozenBatchNorm):
+                m.reset_parameters()
+
+    def forward(self, x):
+        if x.is_cuda:
+            # channels-last activations on the GPU: cuDNN then takes its
+            # NHWC implicit-GEMM kernels, where for NCHW it picks FFT weight
+            # gradients, up to 1.5e-2 (relative) from the f32 direct sums
+            # (the CPU's oneDNN kernels sum well in either layout; NCHW
+            # there keeps the CPU's sums in the JAX package's order).  A
+            # one-channel image is both layouts at once and reads as NCHW
+            # unless its channel stride is 1.
+            x = x.contiguous(memory_format=torch.channels_last)
+            if x.shape[1] == 1:
+                x = x.as_strided(x.shape, (x.stride(0), 1, x.stride(2), x.stride(3)))
+        x = F.relu(self.bn0(self.conv0(x)))
+        x = F.max_pool2d(x, 3, 2, padding=1)
+        for block in self.blocks:
+            x = block(x)
+        return x.mean(dim=(2, 3))
+
+
+class ResNet(nn.Module):
+    """An image of ``in_channels`` × h × w (flattened channel-first, as the
+    image observations are) (+ proprio, the last ``proprio_shape`` columns)
+    → ResNet-34 backbone → (‖ proprio) → 128 → 32 → head, in f32.  The JAX
+    net transposes its image to NHWC for XLA; this one keeps NCHW, so only
+    the conv kernels change layout in the converter (HWIO → OIHW)."""
+
+    IN_CHANNELS = 3
+
+    def __init__(self, input_dim: int, output_dim: int, net_cfg: dict,
+                 proprio_shape: int = 0, h: int = 72, w: int = 128):
+        super().__init__()
+        self.act = get_activation(net_cfg["activation"])
+        self.proprio_shape = int(proprio_shape)
+        self.in_channels, self.h, self.w = self.IN_CHANNELS, int(h), int(w)
+        if input_dim != self.in_channels * self.h * self.w + self.proprio_shape:
+            raise ValueError(
+                f"{type(self).__name__} takes {self.in_channels} × {self.h} × "
+                f"{self.w} image values + {proprio_shape} proprio, not {input_dim} inputs")
+        self.backbone = ResNet34Backbone(self.in_channels)
+        self.hidden = nn.ModuleList([nn.Linear(512 + self.proprio_shape, 128),
+                                     nn.Linear(128, 32)])
+        self.head = nn.Linear(32, output_dim)
+        self.reset_parameters()
+
+    def reset_parameters(self):
+        self.backbone.reset_parameters()
+        for layer in self.hidden:
+            _init_dense(layer, math.sqrt(2.0))
+        _init_dense(self.head, 1.0 if self.head.out_features == 1 else 0.01)
+
+    def forward(self, x):
+        b = x.shape[0]
+        if self.proprio_shape:
+            proprio = x[:, -self.proprio_shape:]
+            img = x[:, :-self.proprio_shape]
+        else:
+            proprio, img = None, x
+        f = self.backbone(img.reshape(b, self.in_channels, self.h, self.w))
+        if proprio is not None:
+            f = torch.cat([f, proprio], dim=-1)
+        for layer in self.hidden:
+            f = self.act(layer(f))
+        return self.head(f)
+
+
+class depthResNet(ResNet):
+    """:class:`ResNet` on a one-channel depth image."""
+
+    IN_CHANNELS = 1
+
+
+def load_resnet34_pretrained(net: ResNet, npz_path: str) -> None:
+    """Graft converted ImageNet ResNet-34 weights (the ``.npz`` that
+    ``tools/resnet_convert.py`` writes: flax paths ``params/<scope>/...`` and
+    ``batch_stats/<scope>/...``) into ``net``'s backbone, in place; the dense
+    layers keep their values.  A one-channel (depth) stem takes the RGB stem
+    kernel summed over its input channels, as the JAX package's loader
+    does."""
+    import numpy as np
+    from ..utils.convert import resnet_backbone_names
+
+    flat = dict(np.load(npz_path))
+    params = dict(net.backbone.named_parameters())
+    with torch.no_grad():
+        for flax_path, name, kind in resnet_backbone_names(
+                [b.down for b in net.backbone.blocks]):
+            v = torch.as_tensor(np.asarray(flat[flax_path], np.float32))
+            if kind == "kernel":
+                v = v.permute(3, 2, 0, 1)            # HWIO → OIHW
+                cur = params[name]
+                if v.shape != cur.shape:
+                    if not (cur.shape[1] == 1 and v.shape[1] == 3):
+                        raise ValueError(f"{flax_path}: {tuple(v.shape)} for {tuple(cur.shape)}")
+                    v = v.sum(dim=1, keepdim=True)
+            params[name].copy_(v)
+
+
 NETWORKS = {"MLP": MLP, "PointNet": PointNet, "Conv3DNet": Conv3DNet,
-            "PoolConv3DNet": PoolConv3DNet}
+            "PoolConv3DNet": PoolConv3DNet, "ResNet": ResNet, "depthResNet": depthResNet}
 
 
 def make_network(name: str, input_dim: int, output_dim: int, net_cfg: dict,
                  proprio_shape: int = 0) -> nn.Module:
-    if name in UNPORTED_NETWORKS:
-        raise NotImplementedError(
-            f"network {name!r} is not ported yet (ROADMAP Queue A: remaining "
-            f"vision modes)")
     return NETWORKS[name](input_dim, output_dim, net_cfg, proprio_shape)

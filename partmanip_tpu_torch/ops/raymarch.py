@@ -27,16 +27,28 @@ other depths than an unculled one (up to 0.22 m where both hit on a 96×128
 render; ROADMAP Queue C).  The JAX package renders with culling on a
 TPU and without it on the CPU.
 
-``render_rgb``, ``scene_sdf_seg``, ``scene_normal`` and ``render_depth_seg``
-are not ported yet: the observation modes that need them raise (ROADMAP
-Queue A: remaining vision modes).
+The renderer's extras, in the JAX package's operations (``linalg.norm``
+and ``quat_rotate_inverse``, not the kernel's component form):
+
+* :func:`scene_sdf_seg` — the scene distance and the segment id of the
+  nearest surface (0 ground, 1 robot, 2 + g box g);
+* :func:`scene_normal` — analytic normals at points of known segment;
+* :func:`render_rgb` — Lambertian shading of per-segment albedo
+  (:data:`PALETTE`) at the hit points of a depth image (by default
+  :func:`render_depth`'s, so kernel B2's on the GPU); the shading pass is
+  plain PyTorch, as the JAX package computes it in XLA;
+* :func:`render_depth_seg` — depth and segment images from a plain,
+  unculled march of its own, as the JAX package's.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from . import rotations as rot
 
 # rays per chunk of the plain march: keeps its [E, chunk, G] temporaries
 # near 64 MB at full width
@@ -249,3 +261,149 @@ def render_depth(prims: ScenePrims, cam_pose, intrinsic, im_h: int, im_w: int,
                                      im_h, im_w, n_steps=n_steps, far=far,
                                      eps=eps, coarse_to_fine=coarse_to_fine,
                                      cull=cull)
+
+
+# ----------------------------------------------------------------------
+# the renderer's extras: segments, normals, RGB
+# ----------------------------------------------------------------------
+
+def _camera_rays(cam_pose, intrinsic, im_h: int, im_w: int, device):
+    """(world directions f32 [V, H·W, 3], z-normalized in the camera frame,
+    origins f32 [V, 3]) of the rig's :class:`RayTable` (built in float64
+    numpy and cast once, as the JAX package's XLA renderer builds them;
+    cached)."""
+    from .raymarch_cuda import ray_table
+    rays = ray_table(cam_pose, intrinsic, im_h, im_w, device)
+    return rays.dirs.transpose(1, 2), rays.origins
+
+
+def _box_local(prims: ScenePrims, p):
+    """Points p [E, N, 3] in every box's frame → [E, N, G, 3]."""
+    rel = p[:, :, None, :] - prims.box_pos[:, None, :, :]
+    return rot.quat_rotate_inverse(prims.box_quat[:, None].expand(rel.shape[:-1] + (4,)), rel)
+
+
+def scene_sdf_seg(prims: ScenePrims, p: torch.Tensor):
+    """(distance [E, N], segment id i32 [E, N]) at points p [E, N, 3].
+
+    Ids: 0 ground / background, 1 robot (all spheres), 2 + g for object
+    box g.  On a tie the robot wins over a box and the ground, a box over
+    the ground, and the lowest box index among boxes."""
+    big = 1e6
+    ds = (torch.linalg.norm(p[:, :, None, :] - prims.sphere_center[:, None, :, :], dim=-1)
+          - prims.sphere_radius[:, None, :])
+    d_rob = ds.amin(-1)
+    q = torch.abs(_box_local(prims, p)) - prims.box_half[:, None, :, :]
+    db = (torch.linalg.norm(torch.clamp(q, min=0.0), dim=-1)
+          + torch.clamp(q.amax(-1), max=0.0))
+    db = torch.where(prims.box_mask[:, None, :] > 0, db, torch.full_like(db, big))
+    d_box, box_id = db.min(dim=-1)
+    d_ground = p[..., 2] if prims.ground else torch.full(p.shape[:-1], big, device=p.device)
+    d = torch.minimum(torch.minimum(d_rob, d_box), d_ground)
+    seg = torch.where(d_rob <= torch.minimum(d_box, d_ground), 1,
+                      torch.where(d_box <= d_ground, 2 + box_id, 0))
+    return d, seg.to(torch.int32)
+
+
+def _take(x, idx):
+    """x [E, G, C] at per-point indices idx [E, N] → [E, N, C]."""
+    return torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def scene_normal(prims: ScenePrims, p: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """Analytic unit normals [E, N, 3] at points p [E, N, 3] of the given
+    segments (0 ground: +z; 1 robot: the nearest sphere's radial direction;
+    2 + g: the face normal of box g, or outside a face the direction from
+    the box's nearest point)."""
+    rel_s = p[:, :, None, :] - prims.sphere_center[:, None, :, :]
+    ds = torch.linalg.norm(rel_s, dim=-1) - prims.sphere_radius[:, None, :]
+    si = torch.argmin(ds, dim=-1)
+    rel_best = torch.gather(rel_s, 2, si[..., None, None].expand(-1, -1, 1, 3))[:, :, 0]
+    n_rob = rel_best / torch.clamp(torch.linalg.norm(rel_best, dim=-1, keepdim=True), min=1e-9)
+
+    gi = torch.clamp(seg - 2, 0, prims.box_pos.shape[1] - 1)
+    bq = _take(prims.box_quat, gi)
+    local = rot.quat_rotate_inverse(bq, p - _take(prims.box_pos, gi))
+    q = torch.abs(local) - _take(prims.box_half, gi)
+    q_out = torch.clamp(q, min=0.0)
+    d_out = torch.linalg.norm(q_out, dim=-1, keepdim=True)
+    sgn = torch.where(local >= 0, 1.0, -1.0)
+    n_out = sgn * q_out / torch.clamp(d_out, min=1e-9)
+    face = (q == q.amax(-1, keepdim=True)).to(p.dtype)
+    n_loc = torch.where(d_out > 0, n_out, sgn * face)
+    n_loc = n_loc / torch.clamp(torch.linalg.norm(n_loc, dim=-1, keepdim=True), min=1e-9)
+    n_box = rot.quat_rotate(bq, n_loc)
+
+    up = torch.zeros_like(p)
+    up[..., 2] = 1.0
+    return torch.where((seg == 1)[..., None], n_rob,
+                       torch.where((seg >= 2)[..., None], n_box, up))
+
+
+# albedo of each segment: ground, robot, then a repeating box palette
+PALETTE = np.array([
+    [0.55, 0.55, 0.58],   # 0 ground
+    [0.92, 0.92, 0.95],   # 1 robot
+    [0.65, 0.45, 0.28], [0.30, 0.45, 0.70], [0.45, 0.62, 0.35],
+    [0.70, 0.55, 0.30], [0.55, 0.35, 0.55], [0.35, 0.55, 0.55],
+], np.float32)
+
+
+def render_rgb(prims: ScenePrims, cam_pose, intrinsic, im_h: int, im_w: int,
+               n_steps: int = 40, far: float = 100.0, eps: float = 1e-3,
+               light_dir=(0.35, 0.25, 0.9), depth=None) -> torch.Tensor:
+    """Lambertian-shaded RGB images [E, V, H, W, 3]: per pixel the albedo of
+    its segment × (0.25 + 0.75 · max(n · l, 0)), black where the ray missed
+    (depth ≥ 0.99 far).  ``depth`` [E, V, H, W] defaults to
+    :func:`render_depth`'s (exact, culled: kernel B2 for prims on a CUDA
+    device); the shading at its hit points is plain PyTorch."""
+    E = prims.sphere_center.shape[0]
+    V = cam_pose.shape[0]
+    if depth is None:
+        depth = render_depth(prims, cam_pose, intrinsic, im_h, im_w,
+                             n_steps=n_steps, far=far, eps=eps)
+    dev = prims.sphere_center.device
+    dirs, origins = _camera_rays(cam_pose, intrinsic, im_h, im_w, dev)
+    l = np.asarray(light_dir, np.float32)
+    l = torch.as_tensor(l / np.linalg.norm(l), device=dev)
+    pal = torch.as_tensor(PALETTE, device=dev)
+    views = []
+    for view in range(V):
+        tz = depth[:, view].reshape(E, -1)
+        p = origins[view] + tz[..., None] * dirs[view][None]
+        _, seg = scene_sdf_seg(prims, p)
+        n = scene_normal(prims, p, seg)
+        shade = 0.25 + 0.75 * torch.clamp((n * l).sum(-1), min=0.0)
+        cidx = torch.where(seg >= 2, 2 + (seg - 2) % (pal.shape[0] - 2), seg)
+        rgb = pal[cidx.long()] * shade[..., None]
+        rgb = torch.where((tz < far * 0.99)[..., None], rgb, torch.zeros_like(rgb))
+        views.append(rgb.reshape(E, im_h, im_w, 3))
+    return torch.stack(views, dim=1)
+
+
+def render_depth_seg(prims: ScenePrims, cam_pose, intrinsic, im_h: int, im_w: int,
+                     n_steps: int = 40, far: float = 100.0, eps: float = 1e-3):
+    """Depth and segmentation images (depth f32 [E, V, H, W], seg i32
+    [E, V, H, W], 0 where the ray missed), from a plain unculled march of
+    their own on any device, as the JAX package's: a march from 0.05 on
+    :func:`scene_sdf_seg`'s distance (the JAX package's ``scene_sdf`` in
+    its operations), then the hit test on it."""
+    E = prims.sphere_center.shape[0]
+    V = cam_pose.shape[0]
+    dirs, origins = _camera_rays(cam_pose, intrinsic, im_h, im_w, prims.sphere_center.device)
+    inv_norm = 1.0 / torch.linalg.norm(dirs, dim=-1)
+    depths, segs = [], []
+    for view in range(V):
+        d0 = dirs[view][None]
+        o = origins[view]
+        tz = torch.full((E, d0.shape[1]), 0.05, device=d0.device)
+        for _ in range(n_steps):
+            dist = scene_sdf_seg(prims, o + tz[..., None] * d0)[0]
+            done = (dist < eps) | (tz > far)
+            tz = torch.where(done, tz, tz + torch.clamp(dist, min=0.0) * inv_norm[view][None])
+        dist, seg = scene_sdf_seg(prims, o + tz[..., None] * d0)
+        hit = (dist < 10 * eps) & (tz <= far)
+        depths.append(torch.where(hit, tz, torch.full_like(tz, far)))
+        segs.append(torch.where(hit, seg, torch.zeros_like(seg)))
+    return (torch.stack(depths, 1).reshape(E, V, im_h, im_w),
+            torch.stack(segs, 1).reshape(E, V, im_h, im_w))

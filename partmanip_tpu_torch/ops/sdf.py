@@ -9,15 +9,18 @@ needs:
   (robust on open meshes); same grid layout and truncation as the JAX
   package, so either package may read the other's bake;
 * :class:`GridStack` / :func:`stack_grids` — M grids padded to one shape;
+* :func:`grid_query` — trilinear lookup of every point in every part's
+  grid; :func:`scene_sdf` / :func:`scene_tsdf` — the (truncated) SDF of a
+  scene of posed parts plus the ground (no code path of either package
+  calls these three: the ``mesh_tsdf`` observation queries the analytic
+  primitives, ``raymarch.scene_sdf``);
 * :func:`grid_query_grad` — trilinear value and analytic gradient with a
   per-query grid id, in the JAX package's operation order (the gradient's
   cell choice must match): the plain version of the grid narrowphase that
   kernel B1c (``csrc/fused_inner_step_obj.cu`` with ``FIS_K > 0``) runs on
   the GPU.
 
-Every function works on the device of its tensors.  ``grid_query``,
-``scene_sdf`` and ``scene_tsdf`` (the ``mesh_tsdf`` vision mode) are not
-ported yet (ROADMAP Queue A: remaining vision modes).
+Every function works on the device of its tensors.
 """
 
 from __future__ import annotations
@@ -177,6 +180,66 @@ def stack_grids(grids: list, pad_value: float, device="cpu") -> GridStack:
         sdf=f32(np.stack(sdfs)),
         bbox_min=f32(np.stack([g["bbox_min"] for g in grids])),
         voxel_size=f32(np.array([g["voxel_size"] for g in grids], np.float32)))
+
+
+def grid_query(stack: GridStack, points: torch.Tensor,
+               outside_value: float) -> torch.Tensor:
+    """Trilinear SDF lookup: points [..., M, N, 3], each row m in part m's
+    local frame → values [..., M, N] (``outside_value`` outside the grid's
+    interior cells)."""
+    M, X, Y, Z = stack.sdf.shape
+    idx = (points - stack.bbox_min[:, None, :]) / stack.voxel_size[:, None, None]
+    hi = torch.tensor([X - 2, Y - 2, Z - 2], dtype=points.dtype, device=points.device)
+    valid = torch.all((idx >= 1.0) & (idx <= hi), dim=-1)
+    idx = torch.minimum(torch.clamp(idx, min=0.0), hi)
+    i0 = idx.to(torch.int64)
+    f = idx - i0
+    fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
+    sy, sz = Y * Z, Z
+    part = torch.arange(M, device=points.device)[:, None] * (X * Y * Z)
+    base = part + i0[..., 0] * sy + i0[..., 1] * sz + i0[..., 2]
+    flat = stack.sdf.reshape(-1)
+
+    def g(d):
+        return flat[base + d]
+
+    val = (((g(0) * (1 - fz) + g(1) * fz) * (1 - fy)
+            + (g(sz) * (1 - fz) + g(sz + 1) * fz) * fy) * (1 - fx)
+           + ((g(sy) * (1 - fz) + g(sy + 1) * fz) * (1 - fy)
+              + (g(sy + sz) * (1 - fz) + g(sy + sz + 1) * fz) * fy) * fx)
+    return torch.where(valid, val, torch.full_like(val, outside_value))
+
+
+def _parts_min(stack: GridStack, part_rot, part_pos, points, outside_value: float,
+               ground: bool):
+    """min over posed parts (+ the ground plane z) of the grid SDF at world
+    points [N, 3] (shared by the envs) or [E, N, 3] → [E, N]."""
+    if points.dim() == 2:
+        x = points[None, None] - part_pos[:, :, None, :]
+    else:
+        x = points[:, None] - part_pos[:, :, None, :]
+    local = torch.einsum("emba,emnb->emna", part_rot, x)     # Rᵀ(x − t)
+    d = grid_query(stack, local, outside_value).amin(dim=-2)
+    if ground:
+        d = torch.minimum(d, points[..., 2] if points.dim() == 3 else points[None, :, 2])
+    return d
+
+
+def scene_sdf(stack: GridStack, part_rot: torch.Tensor, part_pos: torch.Tensor,
+              points: torch.Tensor, ground: bool = True) -> torch.Tensor:
+    """Scene SDF [E, N] = min over the parts posed by part_rot [E, M, 3, 3]
+    (world from part) and part_pos [E, M, 3] (+ the z = 0 ground), at world
+    points [N, 3] or [E, N, 3]; a part contributes +inf outside its grid."""
+    return _parts_min(stack, part_rot, part_pos, points, math.inf, ground)
+
+
+def scene_tsdf(stack: GridStack, part_rot, part_pos, points, sdf_trunc: float,
+               ground: bool = True) -> torch.Tensor:
+    """Truncated scene SDF in [-1, 1]: as :func:`scene_sdf`, but a part
+    contributes ``sdf_trunc`` outside its grid, and the minimum is divided
+    by ``sdf_trunc`` and clipped."""
+    d = _parts_min(stack, part_rot, part_pos, points, sdf_trunc, ground)
+    return torch.clamp(d / sdf_trunc, -1.0, 1.0)
 
 
 def grid_query_grad(stack: GridStack, gid: torch.Tensor, points: torch.Tensor,

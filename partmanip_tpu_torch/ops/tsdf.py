@@ -13,9 +13,13 @@ rounded once, ``fps.fma_f32``), which gives the same f32 points on every
 device, so that farthest-point sampling, whose picks follow the last bit of
 every distance, sees the same cloud.
 
-:func:`integrate` (TSDF fusion) is ported too; ``sparse_voxel`` and
-``extract_surface_points`` are not yet (ROADMAP Queue A: remaining vision
-modes).
+:func:`integrate` fuses the views into a TSDF volume;
+:func:`sparse_voxel` keeps its near-surface voxels and samples 1024 of
+their integer coordinates (with the TSDF value at each);
+:func:`extract_surface_points` samples the volume's zero crossings.  Both
+sample with the same farthest-point sampling (kernel B3 on a CUDA device,
+the plain loop on the CPU), though the JAX package runs them through its
+XLA loop: B3 picks the indices that loop picks.
 """
 
 from __future__ import annotations
@@ -137,3 +141,70 @@ def depth_to_pointcloud(spec: TSDFSpec, depth: torch.Tensor,
     the reference).  depth [E, V, H, W] → [E, k, 3]."""
     pc, _ = farthest_point_sampling(workspace_points(spec, depth), k)
     return pc
+
+
+def _grid_coords(shape) -> np.ndarray:
+    """f32 [prod(shape), 3] integer coordinates of a grid, x-major."""
+    g = np.meshgrid(*[np.arange(n) for n in shape], indexing="ij")
+    return np.stack(g, -1).reshape(-1, 3).astype(np.float32)
+
+
+def surface_points(spec: TSDFSpec, vol: torch.Tensor) -> torch.Tensor:
+    """The points :func:`extract_surface_points` samples from, [E,
+    3·r²·(r − 1), 3]: on every grid edge whose two values change sign (both
+    inside the truncation, |v| < 1) the linear zero crossing
+    ``origin + voxel_size · (base + clip(t, 0, 1) · axis)`` with
+    t = a / (a − b), edges along x, then y, then z; the other edges' points
+    set to the origin.  The last multiply-add rounds as XLA computes it on
+    the CPU, where the JAX package is held: once (fused) in x and y, twice
+    in z (``fps.fma_f32``); farthest-point sampling follows every last
+    bit."""
+    E, r = vol.shape[0], spec.resolution
+    dev = vol.device
+    origin = torch.as_tensor(spec.origin, device=dev)
+    voxel = torch.tensor(spec.voxel_size, dtype=torch.float32, device=dev)
+    pts, masks = [], []
+    for axis in range(3):
+        a = vol.narrow(1 + axis, 0, r - 1)
+        b = vol.narrow(1 + axis, 1, r - 1)
+        cross = (a * b < 0) & (torch.abs(a) < 1.0) & (torch.abs(b) < 1.0)
+        diff = a - b
+        t = a / torch.where(torch.abs(diff) > 1e-12, diff, torch.full_like(diff, 1e-12))
+        shape = [r, r, r]
+        shape[axis] -= 1
+        local = torch.as_tensor(_grid_coords(shape), device=dev)[None].repeat(E, 1, 1)
+        local[..., axis] += torch.clamp(t, 0.0, 1.0).reshape(E, -1)
+        xy = fma_f32(voxel, local[..., :2], origin[:2].expand_as(local[..., :2]))
+        pts.append(torch.cat([xy, origin[2] + voxel * local[..., 2:]], dim=-1))
+        masks.append(cross.reshape(E, -1))
+    return torch.cat(pts, dim=1) * torch.cat(masks, dim=1)[..., None]
+
+
+def extract_surface_points(spec: TSDFSpec, vol: torch.Tensor,
+                           k: int = 1024) -> torch.Tensor:
+    """Level-0 surface points of TSDF volumes [E, r, r, r] → [E, k, 3]:
+    farthest-point sampling of :func:`surface_points`."""
+    return farthest_point_sampling(surface_points(spec, vol), k)[0]
+
+
+def sparse_points(spec: TSDFSpec, vol: torch.Tensor, thres: float = 0.2):
+    """(points [E, r³, 3], flat volume [E, r³]): the integer coordinates of
+    the voxels with |tsdf| < ``thres``, the others the origin (voxel
+    (0, 0, 0))."""
+    flat = vol.reshape(vol.shape[0], -1)
+    r = spec.resolution
+    coords = torch.as_tensor(_grid_coords((r, r, r)), device=vol.device)
+    near = (flat < thres) & (flat > -thres)
+    return torch.where(near[..., None], coords[None], torch.zeros((), device=vol.device)), flat
+
+
+def sparse_voxel(spec: TSDFSpec, depth: torch.Tensor, k: int = 1024,
+                 thres: float = 0.2) -> torch.Tensor:
+    """Near-surface voxel sampling: depth [E, V, H, W] → [E, k, 4] (the
+    integer voxel coordinates i, j, k and the TSDF value there):
+    farthest-point sampling of :func:`sparse_points` of the fused volume
+    (exact: squared distances of small integers round nowhere, so ties go
+    to the lowest index, as ``jnp.argmax``)."""
+    pts, flat = sparse_points(spec, integrate(spec, depth), thres)
+    sampled, idx = farthest_point_sampling(pts, k)
+    return torch.cat([sampled, torch.gather(flat, 1, idx.long())[..., None]], dim=-1)

@@ -10,7 +10,12 @@ without importing JAX):
   are the three per-point layers, the two after the pool and the head;
   ``Conv3DNet`` / ``PoolConv3DNet``: ``Conv_0..Conv_2`` with their kernels
   [kD, kH, kW, in, out] as torch's [out, in, kD, kH, kW], then the dense
-  layer and the head);
+  layer and the head; ``ResNet`` / ``depthResNet``: the variables dict
+  ``{"params", "batch_stats"}``, whose backbone ``ResNet34Backbone_0``
+  holds the stem and ``_BasicBlock_0..15``, conv kernels HWIO → OIHW,
+  each ``BatchNorm_j``'s ``scale`` / ``bias`` (params) and ``mean`` /
+  ``var`` (batch_stats) as the port's ``bn<j>`` parameters, then
+  ``Dense_0..2``);
 * :func:`adam_state_from_jax` — the Adam state of a JAX optimizer (PPO's
   actor part or critic, or DAgger's whole student) → the port's
   ``{"count", "mu", "nu"}`` keyed by parameter name;
@@ -47,6 +52,97 @@ _CONV = {"Conv3DNet": ("stack.convs.0", "stack.convs.1", "stack.convs.2"),
          "PoolConv3DNet": ("stack.convs.0", "stack.convs.1", "stack.convs.2")}
 _KERNEL_TO_TORCH = {2: (1, 0), 5: (4, 3, 0, 1, 2)}
 _WEIGHT_TO_FLAX = {2: (1, 0), 5: (2, 3, 4, 1, 0)}
+
+
+_RESNETS = ("ResNet", "depthResNet")
+_BN_FIELDS = (("params", "scale"), ("params", "bias"), ("batch_stats", "mean"),
+              ("batch_stats", "var"))
+
+
+def resnet_backbone_names(down):
+    """(flax path below the backbone's scope, e.g. ``params/_BasicBlock_3/
+    BatchNorm_2/mean``, the port's parameter name below the backbone, and
+    ``"kernel"`` for a conv kernel or ``"bn"``) of every parameter of a
+    ResNet-34 backbone whose blocks have a 1×1 downsample where ``down``
+    [n_blocks] is True, in the port's order."""
+    out = []
+
+    def layer(scope, module, j):
+        out.append((f"params/{scope}Conv_{j}/kernel", f"{module}conv{j}.weight", "kernel"))
+        for col, field in _BN_FIELDS:
+            out.append((f"{col}/{scope}BatchNorm_{j}/{field}", f"{module}bn{j}.{field}", "bn"))
+
+    layer("", "", 0)
+    for i, has_down in enumerate(down):
+        for j in range(3 if has_down else 2):
+            layer(f"_BasicBlock_{i}/", f"blocks.{i}.", j)
+    return out
+
+
+def _tree_get(tree: dict, path: str):
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
+def _tree_put(tree: dict, path: str, value) -> None:
+    *scopes, leaf = path.split("/")
+    for key in scopes:
+        tree = tree.setdefault(key, {})
+    tree[leaf] = value
+
+
+def _resnet_backbone_paths(tree: dict):
+    """The backbone paths of a flax ResNet variables dict, in the port's
+    order: (flax path from the top, port name below the network, kind)."""
+    scope = tree["params"]["ResNet34Backbone_0"]
+    n_blocks = sum(k.startswith("_BasicBlock_") for k in scope)
+    down = ["Conv_2" in scope[f"_BasicBlock_{i}"] for i in range(n_blocks)]
+    out = []
+    for path, name, kind in resnet_backbone_names(down):
+        col, rest = path.split("/", 1)
+        out.append((f"{col}/ResNet34Backbone_0/{rest}", f"backbone.{name}", kind))
+    return out
+
+
+def _resnet_from_flax(tree: dict, prefix: str) -> Dict[str, torch.Tensor]:
+    """A flax ResNet / depthResNet variables dict (or moments alike) →
+    state-dict entries under ``prefix``."""
+    out = {}
+    for path, name, kind in _resnet_backbone_paths(tree):
+        v = np.asarray(_tree_get(tree, path), np.float32)
+        if kind == "kernel":
+            v = v.transpose(3, 2, 0, 1)
+        out[f"{prefix}.{name}"] = torch.from_numpy(np.array(v, order="C"))
+    for i, d in enumerate(("hidden.0", "hidden.1", "head")):
+        layer = tree["params"][f"Dense_{i}"]
+        out[f"{prefix}.{d}.weight"] = torch.from_numpy(np.array(
+            np.asarray(layer["kernel"], np.float32).T, order="C"))
+        out[f"{prefix}.{d}.bias"] = torch.from_numpy(np.array(layer["bias"], np.float32))
+    return out
+
+
+def _resnet_to_flax(sd: Dict[str, torch.Tensor], prefix: str) -> dict:
+    np_ = lambda t: t.detach().cpu().numpy().astype(np.float32)
+    n_blocks = len({k.split(".")[3] for k in sd if k.startswith(f"{prefix}.backbone.blocks.")})
+    tree = {"params": {"ResNet34Backbone_0": {
+        f"_BasicBlock_{i}": {"Conv_2": {}} if f"{prefix}.backbone.blocks.{i}.conv2.weight" in sd
+        else {} for i in range(n_blocks)}}}
+    for path, name, kind in _resnet_backbone_paths(tree):
+        v = np_(sd[f"{prefix}.{name}"])
+        _tree_put(tree, path, np.ascontiguousarray(v.transpose(2, 3, 1, 0))
+                  if kind == "kernel" else v)
+    for i, d in enumerate(("hidden.0", "hidden.1", "head")):
+        tree["params"][f"Dense_{i}"] = {
+            "kernel": np.ascontiguousarray(np_(sd[f"{prefix}.{d}.weight"]).T),
+            "bias": np_(sd[f"{prefix}.{d}.bias"])}
+    return tree
+
+
+def _net_from_flax(tree: dict, prefix: str, network: str) -> Dict[str, torch.Tensor]:
+    if network in _RESNETS:
+        return _resnet_from_flax(tree, prefix)
+    return _dense_from_flax(tree, prefix, network)
 
 
 def _layer_names(network: str, n_dense: int):
@@ -88,8 +184,8 @@ def actor_critic_from_jax(np_tree: dict, network: str = "MLP") -> Dict[str, torc
     leaves) of a ``network`` actor-critic →
     ``ActorCritic.load_state_dict`` input."""
     sd = {"log_std": torch.from_numpy(np.array(np_tree["log_std"], np.float32))}
-    sd.update(_dense_from_flax(np_tree["actor"], "actor", network))
-    sd.update(_dense_from_flax(np_tree["critic"], "critic", network))
+    sd.update(_net_from_flax(np_tree["actor"], "actor", network))
+    sd.update(_net_from_flax(np_tree["critic"], "critic", network))
     return sd
 
 
@@ -100,6 +196,8 @@ def actor_critic_to_jax(sd: Dict[str, torch.Tensor], network: str = "MLP") -> di
     np_ = lambda t: t.detach().cpu().numpy().astype(np.float32)
 
     def tree(prefix):
+        if network in _RESNETS:
+            return _resnet_to_flax(sd, prefix)
         n_dense = len({k for k in sd if k.startswith(prefix + ".hidden.")
                        and k.endswith(".weight")}) + 1
         out = {}
@@ -136,11 +234,11 @@ def adam_state_from_jax(opt_state, part: str, network: str = "MLP") -> dict:
         if part == "student":
             return actor_critic_from_jax(tree._asdict(), network)
         if part == "actor":
-            out = _dense_from_flax(tree["actor"], "actor", network)
+            out = _net_from_flax(tree["actor"], "actor", network)
             out["log_std"] = torch.from_numpy(np.array(tree["log_std"], np.float32))
             return out
         if part == "critic":
-            return _dense_from_flax(tree, "critic", network)
+            return _net_from_flax(tree, "critic", network)
         raise ValueError(f"part must be 'actor', 'critic' or 'student', got {part!r}")
     return {"count": int(adam.count), "mu": moments(adam.mu), "nu": moments(adam.nu)}
 

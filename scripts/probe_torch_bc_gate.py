@@ -58,8 +58,8 @@ def main():
                           "wall": time.time() - t0}), flush=True)
     if "--no-conv" not in sys.argv:
         obs, _ = load_demo_tree(out, False)
-        conv = cs.conv3d_card_vs_cpu(torch.as_tensor(obs[:64]),
-                                     dict(bc.model_cfg, action_std=0.1))
+        conv = cs.net_card_vs_cpu(torch.as_tensor(obs[:64]),
+                                  dict(bc.model_cfg, action_std=0.1))
         print(json.dumps(conv), flush=True)
         print(json.dumps({"tf32_flag_after": torch.backends.cudnn.allow_tf32}))
     shutil.rmtree(out, ignore_errors=True)

@@ -80,11 +80,11 @@ TEACHER = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 
 @pytest.mark.parametrize("extra,roadmap_item", [
     (("--taskcfg", "open_drawer", "--algocfg", "dagger", "--algo.teacher", TEACHER,
-      "--algo.obs_mode", "depth_sparse", "--task.asset.assetRoot", "{tmp}"),
-     "remaining vision modes"),
-    (("--test_only", "--algo.obs_mode", "depth_pc"), "renderer"),
+      "--algo.obs_mode", "depth_sparse", "--save_video", "--task.asset.assetRoot", "{tmp}"),
+     "tooling"),
+    (("--test_only", "--algo.obs_mode", "rgb_img", "--save_video"), "tooling"),
     (("--test_only", "--save_pose"), "tooling"),
-    (("--test_only", "--save_video"), "renderer"),
+    (("--test_only", "--save_video"), "tooling"),
     (("--test_only", "--parallel.num_devices", "2"), "multi-GPU"),
     (("--test_only", "--sim.coriolis"), "coriolis"),
 ], ids=["dagger", "vision_obs", "save_pose",

@@ -135,8 +135,8 @@ def test_layer_sizes_init_and_refusals():
         tnetworks.Conv3DNet(3072, A, cfg)
     with pytest.raises(ValueError, match="nothing"):
         tnetworks.PoolConv3DNet(8 ** 3, A, cfg)
-    for name in ("ResNet", "depthResNet"):
-        with pytest.raises(NotImplementedError, match="remaining vision modes"):
+    for name in ("ResNet", "depthResNet"):       # the image students take 72×128 images
+        with pytest.raises(ValueError, match="72 × 128"):
             tnetworks.make_network(name, 8, 4, cfg)
 
 

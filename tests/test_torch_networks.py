@@ -54,5 +54,10 @@ def test_bf16_is_the_default_compute_dtype():
 
 @pytest.mark.parametrize("name", ["depthResNet", "ResNet"])
 def test_vision_networks_raise(name):
-    with pytest.raises(NotImplementedError, match="remaining vision modes"):
+    """The image students build at their 72×128 input and raise on any
+    other input size."""
+    channels = 1 if name == "depthResNet" else 3
+    net = tnetworks.make_network(name, channels * 72 * 128, 4, _model_cfg()["network"])
+    assert isinstance(net, tnetworks.NETWORKS[name])
+    with pytest.raises(ValueError, match=f"{channels} × 72 × 128"):
         tnetworks.make_network(name, 8, 4, _model_cfg()["network"])
