@@ -359,12 +359,12 @@ class ResNet34Backbone(nn.Module):
     def forward(self, x):
         if x.is_cuda:
             # channels-last activations on the GPU: cuDNN then takes its
-            # NHWC implicit-GEMM kernels, where for NCHW it picks FFT weight
-            # gradients, up to 1.5e-2 (relative) from the f32 direct sums
-            # (the CPU's oneDNN kernels sum well in either layout; NCHW
-            # there keeps the CPU's sums in the JAX package's order).  A
-            # one-channel image is both layouts at once and reads as NCHW
-            # unless its channel stride is 1.
+            # NHWC implicit-GEMM kernels (for NCHW it picks FFT weight
+            # gradients).  Either layout is f32 to within rounding; on
+            # image rows a ReLU or the stem's pool may take the other
+            # branch of a near-tie in either.  A one-channel image is both
+            # layouts at once and reads as NCHW unless its channel stride
+            # is 1.
             x = x.contiguous(memory_format=torch.channels_last)
             if x.shape[1] == 1:
                 x = x.as_strided(x.shape, (x.stride(0), 1, x.stride(2), x.stride(3)))
