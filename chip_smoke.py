@@ -265,7 +265,7 @@ def phase_build(scenes):
     from partmanip_tpu_torch.ops import fps, raymarch_cuda
     from partmanip_tpu_torch.sim import fused
     from partmanip_tpu_torch.utils import cuda_lib
-    libs = [fused.library(fused.variant(s), fused._dims(s)) for s in scenes]
+    libs = [fused.scene_library(s) for s in scenes]
     libs += [raymarch_cuda.LIBRARY, fps.LIBRARY]
     t0 = time.time()
     procs = [lib.start() for lib in libs]
@@ -283,22 +283,60 @@ def phase_build(scenes):
     return ptxas
 
 
+def _fields(s):
+    """The state fields the kernel checks compare, by TOL's names: robot,
+    free body or object, anchor points."""
+    out = {"qpos": s.robot.qpos, "qvel": s.robot.qvel}
+    if s.body is not None:
+        out.update(body_pos=s.body.pos, body_quat=s.body.quat, body_linvel=s.body.linvel,
+                   body_angvel=s.body.angvel)
+    if s.obj is not None:
+        out.update(obj_qpos=s.obj.qpos, obj_qvel=s.obj.qvel)
+    out["anchor_point"] = s.anchors.point
+    return out
+
+
 def _field_errors(a, b):
-    """Max abs difference per state field between two SceneStates (robot,
-    free body or object, anchor points), the share of equal anchor partner
-    ids, and whether ``a`` is finite."""
-    pairs = {"qpos": (a.robot.qpos, b.robot.qpos), "qvel": (a.robot.qvel, b.robot.qvel)}
-    if a.body is not None:
-        pairs.update(body_pos=(a.body.pos, b.body.pos), body_quat=(a.body.quat, b.body.quat),
-                     body_linvel=(a.body.linvel, b.body.linvel),
-                     body_angvel=(a.body.angvel, b.body.angvel))
-    if a.obj is not None:
-        pairs.update(obj_qpos=(a.obj.qpos, b.obj.qpos), obj_qvel=(a.obj.qvel, b.obj.qvel))
-    pairs["anchor_point"] = (a.anchors.point, b.anchors.point)
-    errs = {k: float((x - y).abs().max()) for k, (x, y) in pairs.items()}
+    """Max abs difference per state field between two SceneStates, the
+    share of equal anchor partner ids, and whether ``a`` is finite."""
+    fa, fb = _fields(a), _fields(b)
+    errs = {k: float((x - fb[k]).abs().max()) for k, x in fa.items()}
     same = float((a.anchors.body == b.anchors.body).float().mean())
-    finite = all(bool(torch.isfinite(x).all()) for x, _ in pairs.values())
+    finite = all(bool(torch.isfinite(x).all()) for x in fa.values())
     return errs, same, finite
+
+
+# the velocities a tree bias changes within one inner step
+BIAS_FIELDS = ("qvel", "obj_qvel", "body_linvel", "body_angvel")
+# the kernel's bias effect (bias build minus default build) against the
+# plain version's, relative to the plain effect's largest magnitude
+BIAS_EFFECT_REL = 1e-2
+
+
+def _bias_effect(control, sim, targets, out, ref):
+    """The bias's effect in one inner step, kernel against plain version:
+    ``out`` / ``ref`` are the kernel's and the plain version's step on a
+    bias build's scene, and the same step is taken on ``control``
+    (the default build's scene).  Per velocity field: the default build's
+    error against the plain version with the bias (the control: it must
+    exceed TOL on some field, or the check could not tell a kernel that
+    drops the bias), the plain effect's size, and, where the control
+    fails, the kernel's effect against the plain one, relative."""
+    from partmanip_tpu_torch.sim import engine, fused
+    ctrl = _fields(fused.fused_inner_steps(control, sim, targets, 1))
+    ref_ctrl = _fields(engine.plain_physics_step(control, sim, targets, n_steps=1))
+    got, want = _fields(out), _fields(ref)
+    report = {}
+    for f in BIAS_FIELDS:
+        if f not in got:
+            continue
+        eff_k, eff_p = got[f] - ctrl[f], want[f] - ref_ctrl[f]
+        size = float(eff_p.abs().max())
+        row = {"control_err": float((ctrl[f] - want[f]).abs().max()), "plain_effect": size}
+        if row["control_err"] > TOL[f]:
+            row["effect_rel_err"] = float((eff_k - eff_p).abs().max()) / size
+        report[f] = row
+    return report
 
 
 @torch.no_grad()
@@ -338,27 +376,35 @@ def rounding_shares(n=200_000):
 
 
 @torch.no_grad()
-def phase_kernel_check(path, env, cases):
+def phase_kernel_check(path, env, cases, scene=None, build="default", rounding=True,
+                       control=None):
     """The kernel against ``engine._inner_step`` for one inner step on each
     case, plus k inner steps in one launch against k launches of one step
-    (k = the inner steps of ``path.chain_physics_steps`` physics steps).
-    Also reports :func:`rounding_shares`, the PyTorch rounding the kernels'
+    (k = the inner steps of ``path.chain_physics_steps`` physics steps), on
+    ``scene`` (default the env's; ``build`` names it in the output: the
+    tooling phase holds the bias builds so).  With ``control`` (the scene
+    of the default build) also :func:`_bias_effect` on each case: the
+    default build must miss the plain version with the bias by more than
+    TOL on some velocity, and on each such velocity the kernel's bias
+    effect must be the plain version's within BIAS_EFFECT_REL.  Also
+    reports :func:`rounding_shares`, the PyTorch rounding the kernels'
     contact geometry copies."""
     from partmanip_tpu_torch.sim import engine, fused
     from partmanip_tpu_torch.utils import contact_states
-    p = env.scene.params
+    scene = env.scene if scene is None else scene
+    p = scene.params
     k = path.chain_physics_steps * p.substeps * p.inner_substeps
     report, worst, failures = {}, 0.0, []
     for name, (sim, targets) in cases.items():
         touching = contact_states.touching_counts(env, sim)
-        ref = engine.plain_physics_step(env.scene, sim, targets, n_steps=1)
-        out = fused.fused_inner_steps(env.scene, sim, targets, 1)
+        ref = engine.plain_physics_step(scene, sim, targets, n_steps=1)
+        out = fused.fused_inner_steps(scene, sim, targets, 1)
         torch.cuda.synchronize()
         errs, same, finite = _field_errors(out, ref)
-        one = fused.fused_inner_steps(env.scene, sim, targets, k)
+        one = fused.fused_inner_steps(scene, sim, targets, k)
         chain = sim
         for _ in range(k):
-            chain = fused.fused_inner_steps(env.scene, chain, targets, 1)
+            chain = fused.fused_inner_steps(scene, chain, targets, 1)
         torch.cuda.synchronize()
         errs_k, same_k, finite_k = _field_errors(one, chain)
         report[name] = {"touching": touching, "max_abs_err": errs,
@@ -366,6 +412,16 @@ def phase_kernel_check(path, env, cases):
                         "anchors": int((ref.anchors.body >= 0).sum()),
                         f"max_abs_err_{k}in1_vs_{k}x1": max(errs_k.values()),
                         "anchor_ids_equal_chain": same_k}
+        if control is not None:
+            effect = _bias_effect(control, sim, targets, out, ref)
+            report[name]["bias_effect"] = effect
+            gated = {f: r["effect_rel_err"] for f, r in effect.items() if "effect_rel_err" in r}
+            if not gated:
+                failures.append(f"{name}: the default build is within TOL of the plain "
+                                f"version with the bias on every velocity: {effect}")
+            failures += [f"{name}: {f} bias effect off by {e:.3g} of its size > "
+                         f"{BIAS_EFFECT_REL:g}" for f, e in gated.items()
+                         if not e <= BIAS_EFFECT_REL]
         worst = max(worst, *errs.values())
         if not (finite and finite_k):
             failures.append(f"{name}: non-finite output")
@@ -380,12 +436,13 @@ def phase_kernel_check(path, env, cases):
     dead = [c for c, m in counts.items() if m == 0]
     if dead:
         failures.append(f"contact case has dead branches {dead}: {counts}")
-    rounding = rounding_shares()
-    emit("kernel_check", variant=path.kernel, num_envs=env.num_envs,
-         tolerances={f: TOL[f] for f in errs}, cases=report, failures=failures,
-         rounding_share_bit_equal=rounding)
+    rounding = rounding_shares() if rounding else None
+    emit("kernel_check", variant=path.kernel, build=build, num_envs=env.num_envs,
+         library=fused.scene_library(scene).name, tolerances={f: TOL[f] for f in errs},
+         bias_effect_rel=None if control is None else BIAS_EFFECT_REL, cases=report, failures=failures, rounding_share_bit_equal=rounding)
     if failures:
-        raise RuntimeError(f"kernel_check ({path.kernel}) failed: " + "; ".join(failures)
+        raise RuntimeError(f"kernel_check ({path.kernel}, {build}) failed: "
+                           + "; ".join(failures)
                            + f" (PyTorch's rounding, share bit-equal: {rounding})")
     return worst
 
@@ -554,15 +611,27 @@ def inner_step_flops(env, touching):
     def tree(D):                             # Cholesky solve and integration
         return 2 * (D ** 3 / 3 + 2 * D ** 2) * 2 + D * 60 + 2 * D * D
 
+    def bias(L, D):                          # fused_bias.cuh: v, w; anchors; jdot, gyro; tau
+        if not scene.params.coriolis:
+            return L * 3 + L * D * 8
+        return (L * D * 12 + D * D * (JCOL + 6) + D * 9
+                + L * D * 45 + L * 60 + L * D * 12)
+
     L, D = scene.robot.num_links, scene.robot.num_dofs
     S = env.spheres.link_idx.shape[0]
     n_anc = scene.robot.ancestor[0].cpu().numpy().sum(1)       # [L]
     sph_anc = n_anc[env.spheres.link_idx.cpu().numpy()]
     robot = (fk_mass(L, D, float(tri(n_anc).sum())) + tree(D)
              + S * (ROT + 3) + float(sph_anc.sum()) * (JCOL + 6))
+    from partmanip_tpu_torch.sim import fused
+    if fused.needs_bias(scene):
+        robot += bias(L, D)
     spheres = (touching["ground"] + touching.get("cube", 0) + touching.get("boxes", 0)
                + touching.get("grids", 0)) / E
-    if scene.obj_tree is None:
+    if scene.obj_tree is None and scene.free_body is None:
+        # B1d: the ground is the only partner, nothing beside the robot
+        partners, rest = 1, 0
+    elif scene.obj_tree is None:
         # the free cube: its narrowphase per sphere, two partners per touching
         # sphere, the body integration
         partners, rest = 2, S * (2 * ROT + 40) + 8 * (ROT + 3) + 200
@@ -575,7 +644,8 @@ def inner_step_flops(env, touching):
                     + Do * 24 + 9 + (Do * (Do + 1) // 2) * 3)
         partners = 1
         rest = (fk_mass(Lo, Do, float(tri(o_anc).sum(-1).mean())) + tree(Do) + boxes
-                + g_act * S * (ROT + 3 + SDF) + touching["box_pairs"] / E * per_pair)
+                + g_act * S * (ROT + 3 + SDF) + touching["box_pairs"] / E * per_pair
+                + (bias(Lo, Do) if fused.needs_bias(scene) else 0))
         if scene.obj_grids is not None:
             # mesh-SDF geoms: poses; per (sphere, live geom) the local point
             # and a lookup (inside its grid: index 6, cell and fractions 6,
@@ -664,7 +734,7 @@ def repeat_envs(scene, idx):
 
 # the kernel function of each physics variant, as the profiler names it
 KERNEL_FUNCTIONS = {"b1a": "fused_inner_step_kernel", "b1b": "fused_inner_step_obj_kernel",
-                    "b1c": "fused_inner_step_obj_kernel"}
+                    "b1c": "fused_inner_step_obj_kernel", "b1d": "fused_inner_step_kernel"}
 
 
 @torch.no_grad()
@@ -679,7 +749,8 @@ def warp_kernel_timing(scene, buf, anc_b, n, repeats=10):
     from partmanip_tpu_torch.sim import fused
     E0 = buf.shape[1]
     blocks_per_sm = fused.occupancy(scene)
-    cfg = fused.launch_config(E0, fused._dims(scene))
+    cfg = fused.launch_config(E0, fused._dims(scene), fused.variant(scene) != "b1d",
+                              fused.needs_bias(scene))
     device_ms, _ = _device_ms(lambda: fused.launch_packed(scene, buf, anc_b, n),
                               [KERNEL_FUNCTIONS[fused.variant(scene)]])
     by_envs, queued_by_envs, keep = {}, {}, []
@@ -990,7 +1061,7 @@ def vision_main_path():
     n_obs = 1 + rounds * (1 + T)                    # init_state's reset, then each round
     c2f = rig.coarse_to_fine and rig.im_h % 4 == 0 and rig.im_w % 4 == 0
     expected = {"b2": n_obs * (2 if c2f else 1), "b3": n_obs,
-                "b1b": 1 + rounds * (1 + T * env.control_freq_inv), "b1a": 0, "b1c": 0}
+                "b1b": 1 + rounds * (1 + T * env.control_freq_inv), "b1a": 0, "b1c": 0, "b1d": 0}
     log = runner.last_log
     obs = runner.last_obs
     pts = obs.reshape(env.num_envs, K_POINTS, 3)
@@ -1336,7 +1407,7 @@ def vision_dagger_train(reps=3):
     c2f = rig.coarse_to_fine and rig.im_h % 4 == 0 and rig.im_w % 4 == 0
     expected = {"b2": n_obs * (2 if c2f else 1), "b3": n_obs,
                 "b1b": 1 + K * runner.n_steps * cfi + n_eval * (2 + T * cfi),
-                "b1a": 0, "b1c": 0}
+                "b1a": 0, "b1c": 0, "b1d": 0}
     logs = runner.train_logs
     bad = sorted({k for log in logs for k, v in log.items()
                   if k.startswith("Train/") and not np.isfinite(v)})
@@ -1360,7 +1431,7 @@ def vision_dagger_train(reps=3):
     torch.cuda.synchronize()
     resume_launches = cuda_lib.launch_counts()
     resume_expected = {"b2": 2 * (2 if c2f else 1), "b3": 2, "b1b": 1 + runner.n_steps * cfi,
-                       "b1a": 0, "b1c": 0}
+                       "b1a": 0, "b1c": 0, "b1d": 0}
     resumed_iter, resumed_count = resumed.curr_iter, resumed.last_ts.opt.count
     rts = resumed.resume(resumed.last_ts, path)
     saved, again = runner.last_ts.opt.state_dict(), rts.opt.state_dict()
@@ -1440,7 +1511,7 @@ def dagger_loop():
     launches = cuda_lib.launch_counts()
     env = runner.env
     expected = {"b1b": 1 + LOOP_ITERATIONS * runner.n_steps * env.control_freq_inv,
-                "b1a": 0, "b1c": 0, "b2": 0, "b3": 0}
+                "b1a": 0, "b1c": 0, "b1d": 0, "b2": 0, "b3": 0}
     loss = [log["Train/dagger_loss"] for log in runner.train_logs]
     want = [record["dagger_loss"][str(i)] for i in range(1, LOOP_ITERATIONS + 1)]
     tail, want_tail = float(np.mean(loss[40:50])), float(np.mean(want[40:50]))
@@ -1793,7 +1864,7 @@ def _dagger_run(task, mode, iterations, extra, launches_total, teacher=DRAWER_CK
     renders = mode != "mesh_tsdf"
     passes = 2 if rig.coarse_to_fine and rig.im_h % 4 == 0 and rig.im_w % 4 == 0 else 1
     samples = mode in ("depth_pc", "depth_sparse")
-    expected = {"b1a": 0, "b1b": 0, "b1c": 0, "b2": n_obs * passes if renders else 0,
+    expected = {"b1a": 0, "b1b": 0, "b1c": 0, "b1d": 0, "b2": n_obs * passes if renders else 0,
                 "b3": n_obs if samples else 0}
     expected[physics] = 1 + K * runner.n_steps * cfi + 2 + T * cfi
     obs_formula = f"1 + K·n_steps + (1 + T + 1) = 1 + {K}·{runner.n_steps} + (1 + {T} + 1)"
@@ -1860,7 +1931,7 @@ def tsdf_student():
         T = DEMO_T
         demos = {"rows": rows, "scenes": scenes, "seconds": summary["seconds"], "gb_written": gb,
                  "kernel_launches": collect_launches,
-                 "expected_launches": {"b1b": 1 + 2 * T, "b1a": 0, "b1c": 0, "b2": 0, "b3": 0},
+                 "expected_launches": {"b1b": 1 + 2 * T, "b1a": 0, "b1c": 0, "b1d": 0, "b2": 0, "b3": 0},
                  "layout": {"tsdf": [DEMO_RES] * 3, "action": 10, "tea_obs": 53,
                             "proprio_state": 0, "tsdf_bf16_rounded": True},
                  "constant_predictor_loss": const_loss}
@@ -2179,6 +2250,59 @@ def buffer_fit(runner, proprio, seed):
             "by_iteration_seeded_start": [per_row(s) for s in seeded]}
 
 
+# the depthResNet runs of phase no_cudnn: the fewest iterations with an
+# iteration-to-iteration spread (112-118 s an iteration without cuDNN on
+# the H100)
+NO_CUDNN_ITERATIONS = 2
+
+
+def no_cudnn():
+    """Phase ``no_cudnn``, run only when asked for (``--only no_cudnn``,
+    about 6 minutes): ROADMAP Queue C's question whether depthResNet's
+    cuDNN weight gradients, which part from float64 more than the CPU's
+    (``net_card_vs_cpu``), change what DAgger learns.  The depth_img +
+    depthResNet DAgger of ``vision_modes`` (grasp_cube, the teacher of
+    :func:`cube_teacher`, seed 29) twice for NO_CUDNN_ITERATIONS: as
+    shipped, and with ``torch.backends.cudnn.enabled = False`` (the
+    student is the run's only network with convolutions, so only its
+    convolutions leave cuDNN, for PyTorch's own kernels).  Prints both
+    runs' Train/dagger_loss per iteration, their buffer fits and seconds
+    an iteration.  Gates: exact launches, finite metrics, and every
+    iteration's loss of the two runs within the shipped run's
+    iteration-to-iteration spread."""
+    teacher = cube_teacher({})
+    runs, failures = {}, []
+    for label, enabled in (("cudnn", True), ("without_cudnn", False)):
+        with torch.backends.cudnn.flags(enabled=enabled, allow_tf32=False):
+            runner, out = _dagger_run("grasp_cube", "depth_img", NO_CUDNN_ITERATIONS, [], {},
+                                      teacher=teacher, network="depthResNet", seed=29)
+            proprio = runner.env.num_obs["proprio_state"] if runner.add_proprio_obs else 0
+            fit = buffer_fit(runner, proprio, seed=29)
+        runs[label] = {"dagger_loss": out["dagger_loss"], "buffer_fit": fit,
+                       "seconds_per_iteration": out["iteration_seconds"]}
+        if out["kernel_launches"] != out["expected_launches"] or out["non_finite"]:
+            failures.append(f"{label}: launches {out['kernel_launches']} (expected "
+                            f"{out['expected_launches']}), non-finite {out['non_finite']}")
+        del runner
+    base, loss = runs["cudnn"]["dagger_loss"], runs["without_cudnn"]["dagger_loss"]
+    spread = max(abs(b - a) for a, b in zip(base[:-1], base[1:]))
+    diff = max(abs(a - b) for a, b in zip(loss, base))
+    agree = diff <= spread
+    emit("no_cudnn", iterations=NO_CUDNN_ITERATIONS, runs=runs, max_abs_diff=diff,
+         iteration_spread=spread, agree_within_spread=agree, failures=failures)
+    print(f"no_cudnn depth_img (depthResNet): Train/dagger_loss {base} with cuDNN, {loss} "
+          f"without; largest gap {diff:.4g} against the iteration-to-iteration spread "
+          f"{spread:.4g}; buffer fit {runs['cudnn']['buffer_fit']['ratio']:.4g} / "
+          f"{runs['without_cudnn']['buffer_fit']['ratio']:.4g} of the seeded start; s an "
+          f"iteration {runs['cudnn']['seconds_per_iteration']} / "
+          f"{runs['without_cudnn']['seconds_per_iteration']}", flush=True)
+    if not agree:
+        failures.append(f"without cuDNN the loss parts from the shipped run's by {diff:.4g}, "
+                        f"more than its iteration-to-iteration spread {spread:.4g}")
+    if failures:
+        raise RuntimeError("no_cudnn failed: " + "; ".join(failures))
+
+
 def cube_teacher(launches_total):
     """The grasp_cube teacher: TEACHER_ITERATIONS PPO iterations of the
     port's own trainer at ppo.yaml's 2048 envs, its checkpoint saved at the
@@ -2198,7 +2322,7 @@ def cube_teacher(launches_total):
         launches_total[k] = launches_total.get(k, 0) + v
     path = os.path.join(runner.save_ckpt_dir, f"model_{K}.ckpt")
     expected = {"b1a": 1 + K * runner.n_steps * runner.env.control_freq_inv,
-                "b1b": 0, "b1c": 0, "b2": 0, "b3": 0}
+                "b1b": 0, "b1c": 0, "b1d": 0, "b2": 0, "b3": 0}
     bad = [k for k, v in runner.last_log.items() if k.startswith("Train/") and not np.isfinite(v)]
     emit("vision_modes_teacher", iterations=runner.curr_iter, num_envs=runner.env.num_envs,
          kernel_launches=launches, expected_launches=expected, wall_seconds=time.time() - t0,
@@ -2315,6 +2439,496 @@ def vision_modes():
     return launches_total
 
 
+# ----------------------------------------------------------------------
+# the tooling path: B1d under tune_pid_torch.py, the bias builds of every
+# B1 variant, the open_drawer evaluation with --sim.coriolis and with
+# capture, the diag twins
+# ----------------------------------------------------------------------
+
+# tools/tune_pid.py --envs 4 --const, the JAX package on the CPU (its
+# printed ratios)
+TUNE_PID_JAX = {"base_x": 0.383, "tip_x": 1.266, "grip": 0.951}
+# docs/CALIBRATION.md's table (an older run of the same tool), printed
+CALIBRATION_RECORD = {"base_x": -0.10, "tip_x": 1.07, "grip": 0.95}
+TUNE_PID_TOL = 0.03            # the card against the JAX package's ratios
+TUNE_PID_CPU_TOL = 1e-3        # the card against the port's plain version on the CPU
+# scripts/diag_cube.py at its defaults (4 envs, 200 steps), the JAX
+# package on the CPU: "ever success"
+DIAG_CUBE_JAX_EVER_SUCCESS = [True, True, True, True]
+CAPTURE_STEPS = 200            # open_drawer.yaml maxEpisodeLength
+
+B1D_PATH = Path(kernel="b1d",
+                source="partmanip_tpu_torch/csrc/fused_inner_step.cu",
+                replaces="partmanip_tpu/sim/fused.py:1398",
+                replaces_function="partmanip_tpu/sim/fused.py:_inner_step_tiled "
+                                  "(neither has_body nor has_obj, flags :1234-1235)",
+                flags=[], main_flags=[], part="robot", rollout=None, rollout_steps=20,
+                policy=None, draws=None, chain_physics_steps=1, chain_tol=0.0,
+                min_success=None)
+
+
+def robot_only_env(num_envs, device="cuda"):
+    """The calibration scene of ``tune_pid_torch.py`` (the mobile Franka and
+    the ground, no object) at ``num_envs`` envs, as the object the kernel
+    checks take for an env: (env, start state, control config)."""
+    import types
+    import tune_pid_torch
+    device = torch.device(device)
+    scene, state, ctrl = tune_pid_torch.build(num_envs, device)
+    env = types.SimpleNamespace(scene=scene, spheres=scene.spheres, num_envs=num_envs,
+                                device=device)
+    return env, state, ctrl
+
+
+@torch.no_grad()
+def robot_only_cases(env, state, ctrl, seed=5):
+    """B1d's states: ``rollout20``, 20 control steps of the calibration
+    harness's random ik commands from the start pose (through the kernel);
+    ``contact``, the start pose jittered, with random joint velocities and
+    the root lowered so that the lowest finger-pad (sticky) sphere of each
+    env sits 0-4 mm in the ground, two plain inner steps in (anchors
+    exist)."""
+    import tune_pid_torch
+    from partmanip_tpu_torch.envs import control
+    from partmanip_tpu_torch.sim import contact, engine, kinematics
+    scene, E = env.scene, env.num_envs
+    rs = np.random.RandomState(seed)
+    cuda = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=env.device)
+    st = state
+    for _ in range(20):
+        a = cuda(rs.uniform(-1, 1, (E, 10)))
+        st, _, _ = tune_pid_torch.step(scene, ctrl, st, a, 2)
+    fk = kinematics.forward_kinematics(scene.robot, st.robot)
+    view = control.robot_view(ctrl, scene.robot, fk, st.robot)
+    rollout = (st, control.compute_targets(ctrl, scene.robot, view,
+                                           cuda(rs.uniform(-1, 1, (E, 10)))))
+    D = scene.robot.num_dofs
+    robot = state.robot._replace(
+        qpos=state.robot.qpos + cuda(rs.uniform(-0.05, 0.05, (E, D))),
+        qvel=cuda(rs.uniform(-0.3, 0.3, (E, D))))
+    fk = kinematics.forward_kinematics(scene.robot, robot)
+    centres = contact.sphere_positions(scene.robot, fk, scene.spheres, E)
+    gap = centres[..., 2] - scene.spheres.radius[None]
+    low = torch.where(scene.spheres.sticky[None] > 0, gap, 1e9).min(dim=1).values
+    root = robot.root_pos.clone()
+    root[:, 2] -= low + cuda(rs.uniform(0.0, 0.004, E))
+    sim = engine.SceneState(robot=robot._replace(root_pos=root))
+    targets = robot.qpos + cuda(rs.uniform(-0.02, 0.02, (E, D)))
+    sim = engine.plain_physics_step(scene, sim, targets, n_steps=2)
+    return {"rollout20": rollout, "contact": (sim, targets)}
+
+
+def bias_scenes(scene):
+    """The scenes of the bias builds' checks: ``coriolis`` (the
+    velocity-product term, gravity_scale as shipped: 0), and with
+    gravity_scale 1 on the robot and, where there is one, on the object
+    tree."""
+    out = {"coriolis": scene._replace(params=scene.params._replace(coriolis=True)),
+           "robot_gravity": scene._replace(robot=scene.robot._replace(
+               gravity_scale=torch.ones_like(scene.robot.gravity_scale)))}
+    if scene.obj_tree is not None:
+        out["object_gravity"] = scene._replace(obj_tree=scene.obj_tree._replace(
+            gravity_scale=torch.ones_like(scene.obj_tree.gravity_scale)))
+    return out
+
+
+# which bias cases each variant's kernel check runs
+BIAS_CASES = {"b1a": ("coriolis", "robot_gravity"),
+              "b1b": ("coriolis", "robot_gravity", "object_gravity"),
+              "b1c": ("coriolis", "robot_gravity", "object_gravity"),
+              "b1d": ("coriolis", "robot_gravity")}
+FAST_QVEL = 2.0                # rad/s (m/s on the base): the coriolis cases' joint speeds
+TILT = 0.2                     # rad about the world y axis: the object_gravity cases' cabinets
+
+
+@torch.no_grad()
+def bias_cases(name, cases, seed=7):
+    """The states of a bias case, made from a path's ``cases`` so that the
+    default build misses the plain version with the bias by more than TOL
+    (measured on the CPU: 0.015-0.05 rad/s in qvel, 0.008 m/s in the
+    drawers' qvel, in one inner step).  ``coriolis``: the robot's joint
+    velocities drawn in ±FAST_QVEL (the velocity product grows with their
+    square; the rollouts move at a few tenths).  ``object_gravity``: each
+    cabinet's root tilted by TILT about the world y axis, so that gravity
+    has a component along the drawers' prismatic joints (upright, the
+    object's bias is 0 whatever its gravity_scale).  ``robot_gravity``:
+    the cases as they are."""
+    from partmanip_tpu_torch.ops import rotations as rot
+    if name == "robot_gravity":
+        return cases
+    rs = np.random.RandomState(seed)
+    out = {}
+    for case, (sim, targets) in cases.items():
+        if name == "coriolis":
+            q = sim.robot.qvel
+            fast = torch.as_tensor(rs.uniform(-FAST_QVEL, FAST_QVEL, q.shape).astype(np.float32),
+                                   device=q.device)
+            sim = sim._replace(robot=sim.robot._replace(qvel=fast))
+        else:
+            q = sim.obj.root_quat
+            t = torch.tensor([0.0, math.sin(TILT / 2), 0.0, math.cos(TILT / 2)],
+                             dtype=q.dtype, device=q.device)
+            sim = sim._replace(obj=sim.obj._replace(root_quat=rot.quat_mul(t.expand_as(q), q)))
+        out[case] = (sim, targets)
+    return out
+
+
+def tooling_build(scenes):
+    """Compile the bias builds of every B1 variant and B1d (one nvcc per
+    library, all started together).  Returns the ptxas lines per library."""
+    from partmanip_tpu_torch.sim import fused
+    from partmanip_tpu_torch.utils import cuda_lib
+    libs = list({fused.scene_library(s).path: fused.scene_library(s) for s in scenes}.values())
+    t0 = time.time()
+    procs = [lib.start() for lib in libs]
+    reports = [lib.finish(p) for lib, p in zip(libs, procs)]
+    for lib in libs:
+        lib.load()
+    ptxas = {lib.name: cuda_lib.ptxas_lines(r) for lib, r in zip(libs, reports)}
+    emit("tooling_build", seconds=time.time() - t0,
+         defines={lib.name: dict(lib.defines) for lib in libs}, ptxas=ptxas)
+    return ptxas
+
+
+@torch.no_grad()
+def build_timing(scene, variants, buf, anc_b, n, repeats=20):
+    """ms of one launch of n inner steps (CUDA events around the wrapper's
+    launch) and device ms (``torch.profiler``) of each scene in
+    ``variants`` on the same state, side by side."""
+    from partmanip_tpu_torch.sim import fused
+    out = {}
+    for name, sc in variants.items():
+        for _ in range(3):
+            fused.launch_packed(sc, buf, anc_b, n)
+        ms = _timed(lambda: fused.launch_packed(sc, buf, anc_b, n), repeats)
+        dev_ms, _ = _device_ms(lambda: fused.launch_packed(sc, buf, anc_b, n),
+                               [KERNEL_FUNCTIONS[fused.variant(sc)]])
+        out[name] = {"ms": ms, "kernel_device_ms": dev_ms,
+                     "library": fused.scene_library(sc).name}
+    return out
+
+
+@torch.no_grad()
+def b1d_timing(env, sim, targets, repeats=20):
+    """B1d at the calibration harness's 4 envs and at 2048: the wrapper's
+    launch (ms), its device time, the plain version, and the bound from
+    this run's contacts (``inner_step_flops``)."""
+    from partmanip_tpu_torch.sim import engine, fused
+    from partmanip_tpu_torch.utils import contact_states
+    p = env.scene.params
+    n = p.substeps * p.inner_substeps
+    by_envs = {}
+    for E in (4, env.num_envs):
+        s = type(sim)(robot=type(sim.robot)(*[x[:E].contiguous() for x in sim.robot]),
+                      anchors=type(sim.anchors)(*[x[:E].contiguous() for x in sim.anchors]))
+        buf, anc_b = fused.pack_state(s, targets[:E].contiguous())
+        for _ in range(3):
+            fused.launch_packed(env.scene, buf, anc_b, n)
+        ms = _timed(lambda: fused.launch_packed(env.scene, buf, anc_b, n), repeats)
+        dev_ms, _ = _device_ms(lambda: fused.launch_packed(env.scene, buf, anc_b, n),
+                               [KERNEL_FUNCTIONS["b1d"]])
+        by_envs[str(E)] = {"ms": ms, "kernel_device_ms": dev_ms}
+    buf, anc_b = fused.pack_state(sim, targets)
+    engine.plain_physics_step(env.scene, sim, targets)
+    plain_ms = _timed(lambda: engine.plain_physics_step(env.scene, sim, targets), 3)
+    touching = contact_states.touching_counts(env, sim)
+    E = env.num_envs
+    flops = inner_step_flops(env, touching) * n * E
+    nbytes = 2 * (buf.numel() * 4 + anc_b.numel() * 4)
+    ops_ms, bytes_ms = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    big = by_envs[str(E)]
+    out = {"ms": big["ms"], "kernel_device_ms": big["kernel_device_ms"], "ms_by_envs": by_envs,
+           "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "bound_operations_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+           "flops_per_launch": flops, "bytes_per_launch": nbytes, "touching": touching,
+           "num_envs": E, "n_steps": n, "library_ms": None,
+           "launch_config": fused.launch_config(E, fused._dims(env.scene), False, False),
+           "occupancy": {"blocks_per_sm": fused.occupancy(env.scene)}}
+    return out
+
+
+def _physics_calls():
+    """Count every ``engine.physics_step`` call from here on: (counter,
+    undo).  The launch counts must equal it, which shows that every physics
+    step went through the kernel."""
+    from partmanip_tpu_torch.sim import engine
+    orig = engine.physics_step
+    calls = [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return orig(*a, **k)
+    engine.physics_step = counted
+    return calls, lambda: setattr(engine, "physics_step", orig)
+
+
+def tune_pid_check():
+    """``tune_pid_torch.py --envs 4 --const`` on the card (every physics
+    step through B1d, launches exact) and with ``--device cpu`` (the plain
+    version): per channel the ratio on the card within TUNE_PID_CPU_TOL of
+    the CPU's and within TUNE_PID_TOL of the JAX package's
+    (TUNE_PID_JAX); docs/CALIBRATION.md's record is printed beside them."""
+    import tune_pid_torch
+    from partmanip_tpu_torch.utils import cuda_lib
+    cuda_lib.reset_launch_counts()
+    calls, undo = _physics_calls()
+    t0 = time.time()
+    try:
+        card = tune_pid_torch.main(["--envs", "4", "--const"])
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = cuda_lib.launch_counts()
+    cpu = tune_pid_torch.main(["--envs", "4", "--const", "--device", "cpu"])
+    ratios = {k: v["ratio"] for k, v in card.items()}
+    vs_cpu = max(abs(ratios[k] - cpu[k]["ratio"]) for k in ratios)
+    vs_jax = max(abs(ratios[k] - TUNE_PID_JAX[k]) for k in ratios)
+    vs_record = {k: ratios[k] - CALIBRATION_RECORD[k] for k in ratios}
+    expected = 3 * 10 * 2                    # channels x control steps x cfi
+    out = {"ratios": ratios, "cpu_ratios": {k: v["ratio"] for k, v in cpu.items()},
+           "jax_ratios": TUNE_PID_JAX, "calibration_record": CALIBRATION_RECORD,
+           "max_abs_vs_cpu": vs_cpu, "max_abs_vs_jax": vs_jax,
+           "minus_calibration_record": vs_record, "launches": launches,
+           "physics_steps": calls[0], "expected_launches": expected, "wall_seconds": wall,
+           "table": card}
+    failures = []
+    if launches["b1d"] != expected or calls[0] != expected or sum(launches.values()) != expected:
+        failures.append(f"tune_pid launches {launches}, physics steps {calls[0]}, "
+                        f"expected {expected} through b1d")
+    if not vs_cpu <= TUNE_PID_CPU_TOL:
+        failures.append(f"tune_pid card vs CPU {vs_cpu:.3g} > {TUNE_PID_CPU_TOL}")
+    if not vs_jax <= TUNE_PID_TOL:
+        failures.append(f"tune_pid card vs the JAX package {vs_jax:.3g} > {TUNE_PID_TOL}")
+    return out, failures
+
+
+def _drawer_eval(extra, exp):
+    """The open_drawer evaluation of the committed expert at the YAML
+    defaults through the CLI entry point, with ``extra`` flags; (runner,
+    launches, physics_step calls, wall s)."""
+    import train_torch
+    from partmanip_tpu_torch.utils import cuda_lib
+    path = PATHS[1]
+    cuda_lib.reset_launch_counts()
+    calls, undo = _physics_calls()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        runner = train_torch.main(path.flags + ["--resume", DRAWER_CKPT, "--exp_name", exp,
+                                                "--test_only", "--log.mode", "screen", *extra])
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    return runner, cuda_lib.launch_counts(), calls[0], time.time() - t0
+
+
+def coriolis_eval():
+    """open_drawer's evaluation at the YAML defaults with ``--sim.coriolis``
+    (B1b's bias build): launches exact, metrics and state finite;
+    Test/succ_rate_max printed, not gated (no JAX record with coriolis)."""
+    runner, launches, calls, wall = _drawer_eval(["--sim.coriolis"],
+                                                 "chip_smoke_coriolis_seed389")
+    env, T = runner.env, runner.env.max_episode_length
+    expected = runner.eval_round * (1 + T * env.control_freq_inv) + 1
+    log = runner.last_log
+    sim = runner.last_env_state.sim
+    finite = all(bool(torch.isfinite(x).all()) for part in (sim.robot, sim.obj) for x in part)
+    bad = [k for k, v in log.items() if not np.isfinite(v)]
+    out = {"num_envs": env.num_envs, "steps": T, "coriolis": env.scene.params.coriolis,
+           "launches": launches, "physics_steps": calls, "expected_launches": expected,
+           "wall_seconds": wall, "succ_rate_max": log.get("Test/succ_rate_max"),
+           "metrics": log}
+    failures = []
+    if (launches["b1b"] != expected or calls != expected
+            or sum(launches.values()) != expected or not env.scene.params.coriolis):
+        failures.append(f"coriolis evaluation launches {launches}, physics steps {calls}, "
+                        f"expected {expected} through b1b")
+    if bad or not finite or env.num_envs != NUM_ENVS:
+        failures.append(f"coriolis evaluation not finite: {bad}, state ok={finite}")
+    print(f"tooling coriolis: Test/succ_rate_max {out['succ_rate_max']} (ungated)", flush=True)
+    return out, failures
+
+
+def _video_frames(video_dir):
+    """('mp4', frames in video.mp4) when cv2 made the video, ('npy', the
+    .npy frames) without cv2."""
+    names = sorted(os.listdir(video_dir))
+    if "video.mp4" in names:
+        import cv2
+        cap = cv2.VideoCapture(os.path.join(video_dir, "video.mp4"))
+        n = 0
+        while cap.read()[0]:
+            n += 1
+        cap.release()
+        return "mp4", n
+    return "npy", sum(1 for f in names if f.endswith(".npy"))
+
+
+@torch.no_grad()
+def capture_eval():
+    """open_drawer's evaluation at the YAML defaults with ``--save_pose
+    --save_video``: one captured episode (a pose dict a step; a 512x1024
+    frame of env 3 a step through ``render_rgb``, its depth through B2)
+    before the evaluation round.  Gates: Test/succ_rate_max >= 0.8, B1b
+    launches exact (both episodes), B2 one launch a frame, every pose file
+    with the JAX package's keys and shapes, every frame in the video (or
+    as .npy without cv2); B2's depth of the last frame's scene at 512x1024
+    bit-equal to ``march_plain``'s."""
+    from partmanip_tpu_torch.algos import ppo
+    from partmanip_tpu_torch.ops import raymarch, raymarch_cuda
+    runner, launches, calls, wall = _drawer_eval(["--save_pose", "--save_video"],
+                                                 "chip_smoke_capture_seed389")
+    env, T = runner.env, runner.env.max_episode_length
+    E = env.num_envs
+    episode = 1 + T * env.control_freq_inv
+    expected = {"b1b": (1 + runner.eval_round) * episode + 1, "b2": T}
+    pose_dir = os.path.join(runner.logger.save_pose_dir, f"Iter{runner.curr_iter}")
+    video_dir = os.path.join(runner.logger.save_video_dir, f"Iter{runner.curr_iter}")
+    pose_files = sorted(os.listdir(pose_dir))
+    d = np.load(os.path.join(pose_dir, "0.npy"), allow_pickle=True).item()
+    shapes = {k: (tuple(v.shape), str(v.dtype)) for k, v in d.items()}
+    want = {"rot": ((E, 12, 3, 3), "float32"), "pos": ((E, 12, 3), "float32"),
+            "state": ((E, runner.num_obs), "float32"),
+            "action": ((E, runner.num_actions), "float32"), "success": ((E,), "bool")}
+    kind, frames = _video_frames(video_dir)
+    # one frame's depth: B2 against the plain march, on the final state
+    args = (ppo.video_prims(env, runner.last_env_state.sim, min(3, E - 1)),
+            *ppo.video_camera(env, ppo.VIDEO_RES))
+    got = raymarch_cuda.render_with(raymarch_cuda.march, *args)
+    ref = raymarch_cuda.render_with(raymarch.march_plain, *args)
+    depth = _depth_errors(got, ref)
+    log = runner.last_log
+    succ = log.get("Test/succ_rate_max", float("nan"))
+    out = {"num_envs": E, "steps": T, "launches": launches, "physics_steps": calls,
+           "expected_launches": expected, "wall_seconds": wall, "succ_rate_max": succ,
+           "pose_files": len(pose_files), "pose_shapes": shapes, "frames": frames,
+           "frames_kind": kind, "video_res": list(ppo.VIDEO_RES), "frame_depth_vs_plain": depth,
+           "metrics": log}
+    print(f"tooling capture: {len(pose_files)} pose files, {frames} frames as {kind}, "
+          f"Test/succ_rate_max {succ}", flush=True)
+    failures = []
+    if (launches["b1b"] != expected["b1b"] or calls != expected["b1b"]
+            or launches["b2"] != expected["b2"]
+            or sum(launches.values()) != expected["b1b"] + expected["b2"]):
+        failures.append(f"capture launches {launches}, physics steps {calls}, expected {expected}")
+    if not succ >= PATHS[1].min_success:
+        failures.append(f"capture Test/succ_rate_max {succ} < {PATHS[1].min_success}")
+    if pose_files != sorted(f"{i}.npy" for i in range(T)) or shapes != {
+            k: (s, t) for k, (s, t) in want.items()} or not np.isfinite(d["rot"]).all():
+        failures.append(f"pose files {len(pose_files)}, shapes {shapes}, want {want}")
+    if frames != T:
+        failures.append(f"{frames} frames ({kind}), expected {T}")
+    if not (depth["bit_equal"] == 1.0 and depth["finite"]):
+        failures.append(f"video frame depth B2 vs plain: {depth}")
+    return out, failures
+
+
+def diag_twins():
+    """The three diag twins at their defaults on the card: every physics
+    step through B1a (the cube scripts) or B1b (the drawer), launches
+    exact, state finite; diag_torch_cube's ever-success flags equal the JAX
+    package's (DIAG_CUBE_JAX_EVER_SUCCESS)."""
+    import importlib.util
+    from partmanip_tpu_torch.utils import cuda_lib
+
+    def script(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "scripts", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    runs = {"diag_torch_cube": ("b1a", []), "poke_torch_cube": ("b1a", []),
+            "diag_torch_drawer": ("b1b", ["--asset_root", os.path.join(ROOT, "assets")])}
+    out, failures = {}, []
+    for name, (kernel, argv) in runs.items():
+        cuda_lib.reset_launch_counts()
+        calls, undo = _physics_calls()
+        t0 = time.time()
+        try:
+            res = script(name).main(argv)
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        launches = cuda_lib.launch_counts()
+        flat = np.concatenate([np.asarray(x, np.float64).ravel() for x in res])
+        out[name] = {"launches": launches, "physics_steps": calls[0],
+                     "wall_seconds": time.time() - t0, "result": flat.tolist()[:16]}
+        if (launches[kernel] != calls[0] or sum(launches.values()) != calls[0]
+                or calls[0] == 0 or not np.isfinite(flat).all()):
+            failures.append(f"{name}: launches {launches}, physics steps {calls[0]}, "
+                            f"result finite {bool(np.isfinite(flat).all())}")
+    ever = [bool(x) for x in out["diag_torch_cube"]["result"][:4]]
+    out["diag_torch_cube"]["ever_success"] = ever
+    out["diag_torch_cube"]["jax_ever_success"] = DIAG_CUBE_JAX_EVER_SUCCESS
+    if ever != DIAG_CUBE_JAX_EVER_SUCCESS:
+        failures.append(f"diag_torch_cube ever success {ever}, the JAX package's "
+                        f"{DIAG_CUBE_JAX_EVER_SUCCESS}")
+    return out, failures
+
+
+def tooling(envs):
+    """Phase ``tooling``: the bias builds of B1a / B1b / B1c and kernel B1d
+    held against the plain version (one inner step under TOL and n in one
+    launch equal to n launches, on each path's rollout and contact states
+    made fast or tilted by :func:`bias_cases`, with the default build as
+    the control and the bias effect within BIAS_EFFECT_REL; B1d on the
+    calibration scene), B1d timed at 4 and 2048 envs and each
+    bias build beside its default build, then the tools through their
+    entry points: ``tune_pid_torch.py --envs 4 --const``, the open_drawer
+    evaluation with ``--sim.coriolis`` and with ``--save_pose
+    --save_video``, and the three diag twins.  Returns B1d's entry of the
+    ``kernels`` line and each B1 variant's bias-build readings."""
+    from partmanip_tpu_torch.sim import fused
+    t_phase = time.time()
+    renv, rstate, ctrl = robot_only_env(NUM_ENVS)
+    scenes = [renv.scene] + [sc for env, _ in envs for sc in bias_scenes(env.scene).values()]
+    scenes += list(bias_scenes(renv.scene).values())
+    ptxas = tooling_build(scenes)
+    rcases = robot_only_cases(renv, rstate, ctrl)
+    checks, timing, failures = {}, {}, []
+    worst_b1d = phase_kernel_check(B1D_PATH, renv, rcases, build="default", rounding=False)
+    for path, (env, cfg) in list(zip(PATHS, envs)) + [(B1D_PATH, (renv, None))]:
+        cases = rcases if path is B1D_PATH else check_cases(path, env, cfg)
+        scs = bias_scenes(env.scene)
+        checks[path.kernel] = {name: phase_kernel_check(path, env, bias_cases(name, cases),
+                                                        scene=scs[name], build=name,
+                                                        rounding=False, control=env.scene)
+                               for name in BIAS_CASES[path.kernel]}
+        sim, targets = next(iter(cases.values()))
+        p = env.scene.params
+        buf, anc_b = fused.pack_state(sim, targets)
+        timing[path.kernel] = build_timing(
+            env.scene, {"default": env.scene, "coriolis": scs["coriolis"]}, buf, anc_b,
+            p.substeps * p.inner_substeps)
+    b1d_time = b1d_timing(renv, *rcases["rollout20"])
+    emit("tooling_kernels", max_abs_err_bias=checks, build_timing=timing, b1d=b1d_time,
+         seconds=time.time() - t_phase)
+    tune, f1 = tune_pid_check()
+    emit("tooling_tune_pid", **tune)
+    cor, f2 = coriolis_eval()
+    emit("tooling_coriolis", **cor)
+    cap, f3 = capture_eval()
+    emit("tooling_capture", **cap)
+    diag, f4 = diag_twins()
+    emit("tooling_diag", **diag)
+    failures += f1 + f2 + f3 + f4
+    emit("tooling", seconds=time.time() - t_phase, failures=failures)
+    if failures:
+        raise RuntimeError("tooling failed: " + "; ".join(failures))
+    b1d = {"name": "fused_inner_step_b1d", "route": "cuda", "source": B1D_PATH.source,
+           "replaces": B1D_PATH.replaces, "replaces_function": B1D_PATH.replaces_function,
+           "launches": tune["launches"]["b1d"], "max_abs_err": worst_b1d,
+           "ptxas": ptxas["b1d"], **b1d_time,
+           "bias_build": {"max_abs_err": checks["b1d"], **timing["b1d"],
+                          "ptxas": ptxas["b1d_bias"]}}
+    bias = {k: {"max_abs_err": checks[k], **timing[k], "ptxas": ptxas[f"{k}_bias"]}
+            for k in ("b1a", "b1b", "b1c")}
+    return b1d, bias
+
+
 def run_vision_path(phases, ptxas):
     """Every phase of the vision path; returns its two entries of the
     ``kernels`` line and the launches of DAgger training (or None)."""
@@ -2345,7 +2959,8 @@ def run_vision_path(phases, ptxas):
 
 
 PHASES = ("kernel_check", "small_reference", "main_path", "timing", "train",
-          "dagger_train", "dagger_loop", "tsdf_student", "vision_modes")
+          "dagger_train", "dagger_loop", "tsdf_student", "vision_modes", "tooling")
+ON_DEMAND = ("no_cudnn",)      # run only when --only names them
 
 
 def make_envs():
@@ -2372,7 +2987,7 @@ def make_envs():
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--only", nargs="+", choices=PHASES, default=list(PHASES))
+    ap.add_argument("--only", nargs="+", choices=PHASES + ON_DEMAND, default=list(PHASES))
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
 
@@ -2405,6 +3020,9 @@ def main(argv=None):
     loop = dagger_loop() if "dagger_loop" in args.only else {}
     tsdf = tsdf_student() if "tsdf_student" in args.only else {}
     modes = vision_modes() if "vision_modes" in args.only else {}
+    b1d, bias = tooling([(env, cfg) for env, cfg in envs]) if "tooling" in args.only else (None, {})
+    if "no_cudnn" in args.only:
+        no_cudnn()
     next(k for k in kernels if k["name"] == "fused_inner_step_b1b").update(
         launches_dagger_train=train.get("b1b"), launches_dagger_loop=loop.get("b1b"),
         launches_tsdf_student=tsdf.get("b1b"))
@@ -2415,10 +3033,14 @@ def main(argv=None):
         name = k["name"].rsplit("_", 1)[1]
         if name != "b1c":
             k["launches_vision_modes"] = modes.get(name)
+        if name in bias:
+            k["bias_build"] = bias[name]
+    if b1d is not None:
+        kernels.append(b1d)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
-    complete = set(args.only) == set(PHASES)
+    complete = set(PHASES) <= set(args.only)
     print(json.dumps({"ok": complete, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

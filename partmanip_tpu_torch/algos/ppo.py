@@ -41,6 +41,29 @@ from ..utils import checkpoint as ckpt_lib
 from ..utils import convert
 from ..utils.fetch import fetch_scalars
 
+# (H, W) of the evaluation video's frames, the JAX package's default
+VIDEO_RES = (512, 1024)
+
+
+def video_camera(env, res):
+    """(pose [1, 4, 4], intrinsics, H, W) of the evaluation video: the
+    env's camera rig's view-0 pose, ``res`` = (H, W)."""
+    from ..utils import camera as camera_lib
+    cam = env.cfg["cam"]
+    poses = camera_lib.gen_camera_poses(cam["look_at"], cam["radius"], num_views=3)[:1]
+    h, w = res
+    return poses, camera_lib.camera_intrinsics(w, h), h, w
+
+
+def video_prims(env, sim, env_id: int):
+    """The scene's primitives (``envs/vision.scene_prims``) of env
+    ``env_id`` alone: its tensor fields sliced, the bool ``ground`` kept
+    (the JAX package's ``_eval_capture`` maps it too and raises)."""
+    from ..envs import vision as vision_lib
+    prims = vision_lib.scene_prims(env, sim)
+    return prims._replace(**{k: v[env_id:env_id + 1] for k, v in prims._asdict().items()
+                             if isinstance(v, torch.Tensor)})
+
 
 def _from_jax(j: dict, network: str = "MLP") -> dict:
     """A JAX PPO checkpoint (``checkpoint.load_jax``) in the port's format,
@@ -156,10 +179,6 @@ class PPO:
         self.save_pose = cfg.get("save_pose") or False
         self.save_video = cfg.get("save_video") or False
         self.save_ckpt_dir = logger.save_ckpt_dir
-        if self.save_pose or self.save_video:
-            raise NotImplementedError(
-                "save_pose / save_video are not ported yet (ROADMAP Queue A: "
-                "tooling)")
 
         self.lr_schedule = cfg["lr_schedule"]
         if self.lr_schedule not in ("fixed", "linear_decay", "step_decay"):
@@ -462,9 +481,91 @@ class PPO:
             metrics[f"{k}_max"] = maxes[k].mean()
         return env_state, metrics, torch.stack(rew_curve)
 
+    @torch.no_grad()
+    def _eval_capture(self, ts: PPOTrainState, env_state):
+        """One evaluation episode with pose dumps and / or video frames (the
+        JAX package's ``_eval_capture``), before the evaluation rounds.
+
+        Pose-only capture is :meth:`_eval_capture_poses`.  With video, env
+        ``min(3, E - 1)`` is rendered once a step at :data:`VIDEO_RES` by
+        ``raymarch.render_rgb`` from the rig's view-0 pose, its depth
+        through kernel B2 on the card, and written with ``utils/video``;
+        poses, if asked for too, are copied to the host every step
+        (:func:`video_camera`, :func:`video_prims`)."""
+        from ..ops import raymarch
+        from ..utils import video as video_lib
+        if self.save_pose and not self.save_video:
+            return self._eval_capture_poses(ts, env_state)
+        env_state, obs = self.env.reset(env_state)
+        o = self._select_obs(obs)
+        if self.tricks["use_state_norm"]:
+            o, _ = rms_lib.normalize(ts.rms, o, False)
+        pose_dir = pjoin(self.logger.save_pose_dir, f"Iter{self.curr_iter}")
+        video_dir = pjoin(self.logger.save_video_dir, f"Iter{self.curr_iter}")
+        cam = video_camera(self.env, VIDEO_RES)
+        env_id = min(3, self.num_envs - 1)
+        save_dicts = []
+        for i in range(self.max_episode_length):
+            actions, _ = self.ac.act_cri(o)
+            if self.save_pose:
+                d = {k: v.cpu().numpy() for k, v in self.env.scene_pose(env_state).items()}
+                d["state"] = o.float().cpu().numpy()
+                d["action"] = actions.float().cpu().numpy()
+                save_dicts.append(d)
+            rgb = raymarch.render_rgb(video_prims(self.env, env_state.sim, env_id), *cam)
+            video_lib.save_rgb_frame(pjoin(video_dir, f"{i:04d}.png"),
+                                     rgb[0, 0].cpu().numpy())
+            env_state, next_obs, rew, dones, extras = self.env.step(
+                env_state, actions, train=False)
+            o = self._select_obs(next_obs)
+            if self.tricks["use_state_norm"]:
+                o, _ = rms_lib.normalize(ts.rms, o, False)
+        if self.save_pose:
+            success = env_state.success.cpu().numpy()
+            os.makedirs(pose_dir, exist_ok=True)
+            for i, d in enumerate(save_dicts):
+                d["success"] = success
+                np.save(pjoin(pose_dir, f"{i}.npy"), d)
+        video_lib.path_to_video(video_dir)
+        return env_state
+
+    @torch.no_grad()
+    def _eval_capture_poses(self, ts: PPOTrainState, env_state):
+        """Pose-only capture: the episode's pose dicts, states and actions
+        stacked on the device, copied to the host once, and written as
+        ``Iter{n}/{i}.npy`` dicts (``rot``, ``pos``, ``state``, ``action``,
+        ``success``), as the JAX package writes them."""
+        env_state, obs = self.env.reset(env_state)
+        o = self._select_obs(obs)
+        if self.tricks["use_state_norm"]:
+            o, _ = rms_lib.normalize(ts.rms, o, False)
+        steps = []
+        for _ in range(self.max_episode_length):
+            actions, _ = self.ac.act_cri(o)
+            out = dict(self.env.scene_pose(env_state))
+            out["state"] = o.float()
+            out["action"] = actions.float()
+            steps.append(out)
+            env_state, next_obs, rew, dones, extras = self.env.step(
+                env_state, actions, train=False)
+            o = self._select_obs(next_obs)
+            if self.tricks["use_state_norm"]:
+                o, _ = rms_lib.normalize(ts.rms, o, False)
+        outs = {k: torch.stack([s[k] for s in steps]).cpu().numpy() for k in steps[0]}
+        success = env_state.success.cpu().numpy()
+        pose_dir = pjoin(self.logger.save_pose_dir, f"Iter{self.curr_iter}")
+        os.makedirs(pose_dir, exist_ok=True)
+        for i in range(self.max_episode_length):
+            d = {k: v[i] for k, v in outs.items()}
+            d["success"] = success
+            np.save(pjoin(pose_dir, f"{i}.npy"), d)
+        return env_state
+
     def eval(self, ts: PPOTrainState, env_state, mode="Val"):
         agg = {}
         curves = []
+        if self.save_pose or self.save_video:
+            env_state = self._eval_capture(ts, env_state)
         for _ in range(self.eval_round):
             env_state, m, rew_curve = self._eval_round(ts, env_state)
             curves.append(rew_curve.cpu().numpy())

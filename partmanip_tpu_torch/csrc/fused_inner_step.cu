@@ -1,5 +1,7 @@
 // Fused physics inner step for a scene of robot + ground + one free box
-// (variant B1a: grasp_cube's cube), CUDA C++ for sm_90a.
+// (variant B1a: grasp_cube's cube) and, compiled with FIS_BODY=0, of the
+// robot and the ground alone (variant B1d: the scene tools/tune_pid.py
+// calibrates the controller on), CUDA C++ for sm_90a.
 //
 // Replaces the TPU Pallas kernel of partmanip_tpu/sim/fused.py (pallas_call
 // :1398 in _make_step_call -> kernel, body _inner_step_tiled :744 with
@@ -75,6 +77,21 @@
 // FIS_PHASES build counts each phase's clock cycles
 // (scripts/prof_torch_fused_phases.py --kernel b1a).
 //
+// B1d (FIS_BODY=0) replaces the same Pallas kernel with has_body=False and
+// has_obj=False (both flags of partmanip_tpu/sim/fused.py:1234-1235 off):
+// this source with the box's narrowphase, its reactions and its integration
+// compiled out, and the box's rows dropped from the state and its fields
+// from the Spec.  The spheres meet the ground only (partner id 0).
+//
+// Built with FIS_BIAS=1, the right-hand sides of both solves also subtract
+// the robot's tree bias (dynamics.bias_forces: gravity times the Spec's
+// gscale and, when the Spec's coriolis is set, the velocity-product term),
+// computed once per inner step from the state at its start at the end of
+// the mass-matrix phase (fused_bias.cuh).  The TPU kernel has no such build:
+// its fused_supported (partmanip_tpu/sim/fused.py:1189, :1202-1207) hands
+// coriolis and gravity to XLA.  The default build (FIS_BIAS=0) is the code
+// it was before the bias existed.
+//
 // Numerics follow the plain version literally (see fused_common.cuh); what
 // differs, outside the contact geometry, is fma contraction and the order
 // of sums.
@@ -97,6 +114,17 @@
 // warps per block, two envs a warp; 16 / FIS_WARPS blocks are meant to share an SM
 #ifndef FIS_WARPS
 #define FIS_WARPS 2
+#endif
+// 1: the free box (B1a); 0: the robot and the ground alone (B1d)
+#ifndef FIS_BODY
+#define FIS_BODY 1
+#endif
+// 1: the solves subtract the robot's tree bias (gravity, coriolis)
+#ifndef FIS_BIAS
+#define FIS_BIAS 0
+#endif
+#if FIS_BIAS
+#include "fused_bias.cuh"
 #endif
 
 #define L FIS_L
@@ -135,11 +163,13 @@ struct Spec {
     float sph_radius[S];
     float sph_mu[S];
     float sph_sticky[S];
+#if FIS_BODY
     float cube_mass;
     float cube_inertia[9];
     float cube_half[3];
     float cube_gscale;
     float cube_mu;
+#endif
     float h;
     float gravity;
     float kn;
@@ -148,17 +178,27 @@ struct Spec {
     float ground_mu;
     // derived on the host with the plain version's formulas
     float cd_ground;          // 2 zeta sqrt(kn * 0.5)
+#if FIS_BODY
     float cd_cube;            // 2 zeta sqrt(kn * m_cube)
     float cd_corner;          // 2 zeta sqrt(kn * m_cube / 4)
+#endif
     float coef_ground;        // h cd_ground + h^2 kn
+#if FIS_BODY
     float coef_cube;          // h cd_cube + h^2 kn
+#endif
     float anchor_ks;
     float anchor_cdt;         // 2 zeta_a sqrt(ks * 0.1)
     float coef_anchor;        // h cdt + h^2 ks
+#if FIS_BODY
     float hold_vel;
+#endif
     float friction_veps;
     float brake_beta;
     float sat_veps;
+#if FIS_BIAS
+    float gscale;             // the robot's gravity_scale
+    float coriolis;           // 1: the velocity-product term too
+#endif
 };
 
 // Row offsets of the env-minor state buffer [FIS_NF, E].
@@ -167,11 +207,15 @@ enum {
     R_QVEL = R_QPOS + D,
     R_ROOTP = R_QVEL + D,
     R_ROOTQ = R_ROOTP + 3,
+#if FIS_BODY
     R_BPOS = R_ROOTQ + 4,
     R_BQUAT = R_BPOS + 3,
     R_BLIN = R_BQUAT + 4,
     R_BANG = R_BLIN + 3,
     R_ANCP = R_BANG + 3,
+#else
+    R_ANCP = R_ROOTQ + 4,
+#endif
     R_TGT = R_ANCP + 3 * S,
     FIS_NF = R_TGT + D
 };
@@ -187,8 +231,14 @@ constexpr int SROUND = (S + 15) / 16;       // rounds of the lanes over spheres
 // The scratch area, reused phase by phase: the chain's local joint
 // transforms (7 L); the mass matrix's COMs, inertias and Jacobian columns
 // (L x 12 + L x D x 6); the touching spheres' Jacobians, forces and normal
-// operators (S x D x 3 + S x 12); the Cholesky factor (D x D).
+// operators (S x D x 3 + S x 12); the Cholesky factor (D x D).  The bias
+// build keeps its per-link and per-dof terms after the mass matrix's.
+#if FIS_BIAS
+constexpr int SCRATCH = cmax(cmax(7 * L, D * D), cmax(L * 12 + L * D * 6 + FIS_BIAS_SCRATCH(L, D),
+                                                      S * D * 3 + S * 12));
+#else
 constexpr int SCRATCH = cmax(cmax(7 * L, D * D), cmax(L * 12 + L * D * 6, S * D * 3 + S * 12));
+#endif
 
 // One env's working set in shared memory (a half-warp's).  4-byte members
 // only; tests/test_torch_fused_warp_b1a.py reads the layout out of this
@@ -206,13 +256,18 @@ struct Work {
     float Ac[TRI];
     float tau[D];
     float cen[S][3];          // sphere centres
+#if FIS_BODY
     float nb[S][3];           // the box contact's world normal
     float db[S];              // and depth
+#endif
     int pid[S];               // partner: -1 none, 0 ground, 1 box
     float anc_p[S][3];        // stick-slip anchors, in the partner's frame
     int anc_b[S];
     int tl[S];                // the touching spheres, ascending
     float scratch[SCRATCH];
+#if FIS_BIAS
+    float bias[D];            // the robot's tree bias of this inner step
+#endif
 };
 
 constexpr int SPEC_WORDS = (int)(sizeof(Spec) / 4);
@@ -300,8 +355,9 @@ __device__ __forceinline__ void robot_fk(const Spec& sp, Work& w, int hl) {
     __syncwarp();
 }
 
-// Joint-space inertia, row-major lower triangle M (dynamics.mass_matrix).
-// Uses L x 12 + L x D x 6 scratch floats.
+// Joint-space inertia, row-major lower triangle M (dynamics.mass_matrix),
+// and in the bias build the tree bias after it.  Uses L x 12 + L x D x 6
+// scratch floats (+ FIS_BIAS_SCRATCH).
 __device__ __forceinline__ void robot_mass(const Spec& sp, Work& w, int hl) {
     float* com_w = w.scratch;                 // [L][3]
     float* Iw = com_w + L * 3;                // [L][9]
@@ -359,6 +415,10 @@ __device__ __forceinline__ void robot_mass(const Spec& sp, Work& w, int hl) {
         if (hl + 16 * k < TRI) w.M[hl + 16 * k] = m[k];
     }
     __syncwarp();
+#if FIS_BIAS
+    tree_bias<L, D>(sp, w.lp, w.axw, w.anw, w.rev, w.pris, w.st + R_QVEL, com_w, Iw, jv,
+                    Ijw + L * D * 3, w.bias, sp.gravity, sp.gscale, sp.coriolis != 0.0f, hl);
+#endif
 }
 
 // One touching sphere of pass B (the j-th, on its own lane): its velocity
@@ -381,23 +441,34 @@ __device__ __forceinline__ void sphere_forces(const Spec& sp, Work& w, int j, co
         v = v + ld3(jp + 3 * (j * D + d)) * qv[d];
     }
     const float r = sp.sph_radius[s];
+#if FIS_BODY
     const float dg = c.z - r, db = w.db[s];
     const int id = w.pid[s];
     const V3 nb = ld3(w.nb[s]);
     const V3 rc = c - bpos;
     const V3 v_box = blin + cross(bang, rc);
+#else
+    const float dg = c.z - r;
+    const int id = w.pid[s];
+#endif
     V3 F = v3(0.0f, 0.0f, 0.0f);
     float N[9];
 #pragma unroll
     for (int k = 0; k < 9; ++k) N[k] = 0.0f;
+#if FIS_BODY
     float fn_g = 0.0f, fn_b = 0.0f;
     const float mu_g = 0.5f * (sp.sph_mu[s] + sp.ground_mu);
     const float mu_b = 0.5f * (sp.sph_mu[s] + sp.cube_mu);
+#else
+    float fn_g = 0.0f;
+    const float mu_g = 0.5f * (sp.sph_mu[s] + sp.ground_mu);
+#endif
     if (dg < 0.0f) {
         F = F + penalty_force(dg, v3(0.0f, 0.0f, 1.0f), v, mu_g, 0.5f, sp.cd_ground, n_act_g,
                               0.0f, h, sp.kn, sp.kt, sp.max_depen, &fn_g);
         N[8] += sp.coef_ground;
     }
+#if FIS_BODY
     if (db < 0.0f) {
         const V3 fb = penalty_force(db, nb, v - v_box, mu_b, sp.cube_mass, sp.cd_cube, n_act_b,
                                     1.0f, h, sp.kn, sp.kt, sp.max_depen, &fn_b);
@@ -416,6 +487,13 @@ __device__ __forceinline__ void sphere_forces(const Spec& sp, Work& w, int j, co
     const float fn = on_box ? fn_b : fn_g;
     const float mu = on_box ? mu_b : mu_g;
     const V3 pvel = on_box ? v_box : v3(0.0f, 0.0f, 0.0f);
+#else
+    // the selected contact: the ground (B1d has no other partner)
+    const V3 n = v3(0.0f, 0.0f, 1.0f);
+    const float fn = fn_g;
+    const float mu = mu_g;
+    const V3 pvel = v3(0.0f, 0.0f, 0.0f);
+#endif
     const V3 v_rel = v - pvel;
     const V3 vt = v_rel - dot(v_rel, n) * n;
 
@@ -426,7 +504,11 @@ __device__ __forceinline__ void sphere_forces(const Spec& sp, Work& w, int j, co
         const int anc_b = w.anc_b[s];
         const V3 anc_p = ld3(w.anc_p[s]);
         const bool same = anc_b == id;
+#if FIS_BODY
         const V3 aw = anc_b == 1 ? add_r(quat_rotate_t(bquat, anc_p), bpos) : anc_p;
+#else
+        const V3 aw = anc_p;                  // ground / none: world frame
+#endif
         const V3 delta = c - aw;
         const V3 delta_t = delta - dot(delta, n) * n;
         const V3 ft_raw = same ? (-sp.anchor_ks) * delta_t - sp.anchor_cdt * vt
@@ -440,7 +522,11 @@ __device__ __forceinline__ void sphere_forces(const Spec& sp, Work& w, int j, co
         const V3 new_w = stick ? aw
                                : c + v3(div_pos(ft.x, sp.anchor_ks), div_pos(ft.y, sp.anchor_ks),
                                         div_pos(ft.z, sp.anchor_ks));
+#if FIS_BODY
         st3(w.anc_p[s], on_box ? quat_rotate_inv_t(bquat, sub_r(new_w, bpos)) : new_w);
+#else
+        st3(w.anc_p[s], new_w);
+#endif
         w.anc_b[s] = id;
         ft = ft * sticky;
     } else {
@@ -456,6 +542,7 @@ __device__ __forceinline__ void sphere_forces(const Spec& sp, Work& w, int j, co
             for (int b = 0; b < 3; ++b)
                 N[a * 3 + b] += sp.coef_anchor * ((a == b ? 1.0f : 0.0f) - nn[a] * nn[b]);
     }
+#if FIS_BODY
     // friction reaction on the box, capped to velocity matching
     if (on_box) {
         const float cap = (sp.cube_mass / n_touch_box) * (norm(vt) + sp.hold_vel) / h;
@@ -464,11 +551,13 @@ __device__ __forceinline__ void sphere_forces(const Spec& sp, Work& w, int j, co
         *fw = *fw - ftc;
         *tw = *tw - cross(rc, ftc);
     }
+#endif
     st3(Fs + 3 * j, F);
 #pragma unroll
     for (int k = 0; k < 9; ++k) Ns[9 * j + k] = N[k];
 }
 
+#if FIS_BODY
 // The free box (engine._inner_step's corner contacts and delta-v cap, then
 // contact.integrate_free_body): lanes over the 8 corners against the
 // ground; the corners' force and torque and this lane's part of the
@@ -544,6 +633,8 @@ __device__ __forceinline__ void box_step(const Spec& sp, Work& w, int hl, int ba
     __syncwarp();
 }
 
+#endif
+
 // tau = J^T F and Ac = J^T N J (lower triangle) over the nt touching
 // spheres: lanes over the (d, f) entries and the d of tau, each summing over
 // the touching spheres in sphere order.
@@ -581,7 +672,8 @@ __device__ __forceinline__ void robot_jt(const Spec& sp, Work& w, int hl, int nt
 }
 
 // Two-pass effort-clamped implicit PD step (dynamics.step_tree), a lane per
-// dof: (M + h D + h^2 K + Ac) qacc = tau_drive + tau_fric + tau_ext, then
+// dof: (M + h D + h^2 K + Ac) qacc = tau_drive + tau_fric + tau_ext (- the
+// tree bias in the FIS_BIAS build), then
 // the clipped velocity / position update with joint limits.  The lanes
 // hl >= D hold zero rows and a zero right-hand side, which change none of
 // the solve's operations.  Updates q and qv in place; uses D x D scratch
@@ -592,7 +684,11 @@ __device__ __forceinline__ void robot_solve(const Spec& sp, Work& w, int hl, int
     const int d = real ? hl : D - 1;          // lanes without a dof read a real one, then drop it
     float* q = w.st + R_QPOS;
     float* qv = w.st + R_QVEL;
+#if FIS_BIAS
+    const float qd = q[d], qvd = qv[d], tg = w.tgt[d], te = w.tau[d] - w.bias[d];
+#else
     const float qd = q[d], qvd = qv[d], tg = w.tgt[d], te = w.tau[d];
+#endif
     const float kp = sp.kp[d], kd = sp.kd[d], mask = sp.dof_mask[d], effort = sp.effort[d];
     const float fric = sp.friction[d], damping = sp.damping[d], vel_limit = sp.vel_limit[d];
     const float Mdd = w.M[d * (d + 1) / 2 + d];
@@ -671,7 +767,9 @@ fused_inner_step_kernel(const float* __restrict__ in, const int* __restrict__ an
         w.anc_b[s] = anc_b_in[(size_t)s * E + ee];
     }
     __syncwarp();
+#if FIS_BODY
     const V3 half = ld3(sp.cube_half);
+#endif
     float* jp = w.scratch;                    // [S][D][3] the touching spheres' Jacobians
     float* Fs = jp + S * D * 3;               // [S][3] their forces
     float* Ns = Fs + S * 3;                   // [S][9] and normal operators
@@ -686,8 +784,13 @@ fused_inner_step_kernel(const float* __restrict__ in, const int* __restrict__ an
 
         // ---- spheres, narrowphase pass A: lanes over spheres; the
         // budgets and the touching spheres by ballot over the env's half
+#if FIS_BODY
         const V3 bpos = ld3(w.st + R_BPOS), blin = ld3(w.st + R_BLIN), bang = ld3(w.st + R_BANG);
         const Q4 bquat = ld4(w.st + R_BQUAT);
+#else
+        const V3 bpos = v3(0.0f, 0.0f, 0.0f), blin = bpos, bang = bpos;   // no box: unread
+        const Q4 bquat = {0.0f, 0.0f, 0.0f, 1.0f};
+#endif
         unsigned touching = 0u;
         int n_g = 0, n_b = 0, n_c = 0;
 #pragma unroll
@@ -701,6 +804,7 @@ fused_inner_step_kernel(const float* __restrict__ in, const int* __restrict__ an
                 st3(w.cen[s], c);
                 const float r = sp.sph_radius[s];
                 const float dg = c.z - r;
+#if FIS_BODY
                 V3 n_local;
                 const float db = __fsub_rn(
                     box_sdf_t(quat_rotate_inv_t(bquat, sub_r(c, bpos)), half, &n_local), r);
@@ -708,6 +812,10 @@ fused_inner_step_kernel(const float* __restrict__ in, const int* __restrict__ an
                 w.db[s] = db;
                 tg = dg < 0.0f;
                 tb = db < 0.0f;
+#else
+                const float db = 1e9f;                // no box
+                tg = dg < 0.0f;
+#endif
                 // partner choice in the order ground (0), box (1): a later
                 // partner wins only with a strictly smaller depth
                 float bd = 1e9f;
@@ -748,8 +856,10 @@ fused_inner_step_kernel(const float* __restrict__ in, const int* __restrict__ an
         __syncwarp();
         PHASE(3)
 
+#if FIS_BODY
         // ---- the free box ----
         box_step(sp, w, hl, base, fw, tw, bpos, bquat, blin, bang);
+#endif
         PHASE(4)
 
         // ---- joint space, then the two-pass effort-clamped implicit PD ----

@@ -98,6 +98,16 @@
 // B1c adds S x K trilinear queries of 8 loads per inner step from a 30.9 MB
 // stack that stays in L2.
 //
+// Built with FIS_BIAS=1, the right-hand sides of both trees' solves also
+// subtract each tree's bias (dynamics.bias_forces: gravity times the tree's
+// gscale, the robot's in the Spec and the object's in its ObjSpec record,
+// and, when the Spec's coriolis is set, the velocity-product term), each
+// computed once per inner step from the state at its start, right after
+// that tree's mass matrix (fused_bias.cuh).  The TPU kernel has no such
+// build: its fused_supported (partmanip_tpu/sim/fused.py:1189, :1202-1207)
+// hands coriolis and gravity to XLA.  The default build (FIS_BIAS=0) is the
+// code it was before the bias existed.
+//
 // Numerics follow the plain version literally (see fused_common.cuh); what
 // differs, outside the contact geometry, is fma contraction and the order
 // of sums.
@@ -132,6 +142,13 @@
 // envs (warps) per block; 16 / FIS_WARPS blocks are meant to share an SM
 #ifndef FIS_WARPS
 #define FIS_WARPS 4
+#endif
+// 1: the solves subtract each tree's bias (gravity, coriolis)
+#ifndef FIS_BIAS
+#define FIS_BIAS 0
+#endif
+#if FIS_BIAS
+#include "fused_bias.cuh"
 #endif
 
 #define L FIS_L
@@ -199,6 +216,10 @@ struct Spec {
     float friction_veps;
     float brake_beta;
     float sat_veps;
+#if FIS_BIAS
+    float gscale;             // the robot's gravity_scale
+    float coriolis;           // 1: the velocity-product term too
+#endif
 };
 
 // One articulated object (tree + collision boxes), in global memory: a
@@ -232,6 +253,9 @@ struct ObjSpec {
     float b_half[G][3];
     float b_mask[G];
     float b_mu[G];
+#if FIS_BIAS
+    float gscale;             // the object's gravity_scale
+#endif
 };
 
 #if FIS_K > 0
@@ -327,10 +351,18 @@ constexpr int KG = FIS_K > 0 ? FIS_K : 1;   // grid arrays keep one slot in B1b
 // transforms (7 (L + LO)); the mass matrix's COMs, inertias and Jacobian columns
 // (NL x 12 + NL x ND x 6, robot then object); the sphere Jacobians
 // (S x D x 3) beside first the pair depths (S x G + S x K), then N J (S x D
-// x 3); the two trees' Cholesky factors (2 x D x D).
+// x 3); the two trees' Cholesky factors (2 x D x D).  The bias build keeps
+// each tree's per-link and per-dof terms after its mass matrix's.
+#if FIS_BIAS
+constexpr int SCRATCH = cmax(cmax(7 * (L + LO), 2 * D * D),
+                             cmax(cmax(L * 12 + L * D * 6 + FIS_BIAS_SCRATCH(L, D),
+                                       LO * 12 + LO * DO * 6 + FIS_BIAS_SCRATCH(LO, DO)),
+                                  S * D * 3 + cmax(S * G + S * KG, S * D * 3)));
+#else
 constexpr int SCRATCH = cmax(cmax(7 * (L + LO), 2 * D * D),
                              cmax(cmax(L * 12 + L * D * 6, LO * 12 + LO * DO * 6),
                                   S * D * 3 + cmax(S * G + S * KG, S * D * 3)));
+#endif
 
 // One env's working set in shared memory (a warp's).  4-byte members only;
 // tests/test_torch_fused_warp.py reads the layout out of this source.
@@ -366,6 +398,10 @@ struct Work {
     float N[S][9];
     int act[S];               // the sphere touches a partner this step
     float scratch[SCRATCH];
+#if FIS_BIAS
+    float bias[D];            // the trees' biases of this inner step
+    float obias[DO];
+#endif
 };
 
 constexpr int SPEC_WORDS = (int)(sizeof(Spec) / 4);
@@ -537,7 +573,7 @@ __device__ __forceinline__ void tree_mass(const T& t, const float (*lp)[3], cons
 
 // Two-pass effort-clamped implicit PD step (dynamics.step_tree) of both
 // trees at once, a lane per dof: (M + h D + h^2 K + Ac) qacc = tau_drive +
-// tau_fric + tau_ext, then the clipped velocity / position update with
+// tau_fric + tau_ext (- the tree's bias in the FIS_BIAS build), then the clipped velocity / position update with
 // joint limits.  The robot's D rows lie on lanes 0..15, the object's DO rows
 // on lanes 16..31, padded to D rows with identity rows and a zero right-hand
 // side: rows and columns after the real ones change none of the 4 x 4
@@ -560,7 +596,11 @@ __device__ __forceinline__ void tree_steps(const Spec& sp, const ObjSpec& os, Wo
     const float* Act = obj ? w.Ao : w.Ac;
     const float qd = q[d], qvd = qv[d];
     const float tg = obj ? q[d] : w.tgt[d];
+#if FIS_BIAS
+    const float te = obj ? w.tau_o[d] - w.obias[d] : w.tau[d] - w.bias[d];
+#else
     const float te = obj ? w.tau_o[d] : w.tau[d];
+#endif
 #define DOF(field) (obj ? os.field[d] : sp.field[d])
     const float kp = DOF(kp), kd = DOF(kd), mask = DOF(dof_mask), effort = DOF(effort);
     const float fric = DOF(friction), damping = DOF(damping), vel_limit = DOF(vel_limit);
@@ -753,9 +793,21 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
         trees_fk(sp, os, w, lane);
         PHASE(0)
         tree_mass<L, D>(sp, w.lp, w.lq, w.axw, w.anw, w.rev, w.pris, w.M, w.scratch, lane);
+#if FIS_BIAS
+        // from tree_mass's COMs, inertias and Jacobian columns in scratch
+        tree_bias<L, D>(sp, w.lp, w.axw, w.anw, w.rev, w.pris, w.st + R_QVEL, w.scratch,
+                        w.scratch + L * 3, w.scratch + L * 12, w.scratch + L * 12 + L * D * 6,
+                        w.bias, sp.gravity, sp.gscale, sp.coriolis != 0.0f, lane);
+#endif
         PHASE(1)
         tree_mass<LO, DO>(os, w.olp, w.olq, w.oaxw, w.oanw, w.orev, w.opris, w.Mo, w.scratch,
                           lane);
+#if FIS_BIAS
+        tree_bias<LO, DO>(os, w.olp, w.oaxw, w.oanw, w.orev, w.opris, w.st + R_OV, w.scratch,
+                          w.scratch + LO * 3, w.scratch + LO * 12,
+                          w.scratch + LO * 12 + LO * DO * 6, w.obias, sp.gravity, os.gscale,
+                          sp.coriolis != 0.0f, lane);
+#endif
         PHASE(2)
 
         // ---- world box (and grid) poses; sphere centres, ground budget ----

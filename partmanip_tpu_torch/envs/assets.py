@@ -298,6 +298,20 @@ def _write_box_obj(path: str, size):
             f.write(f"f {a} {b} {c}\nf {a} {c} {d}\n")
 
 
+def _write_cube_obj(path: str, half: float):
+    """A cube of half extent ``half`` as an OBJ (8 vertices, 12 triangles),
+    written as the JAX package's ``assets._write_cube_obj`` writes it."""
+    v = [(sx * half, sy * half, sz * half)
+         for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)]
+    faces = [(1, 2, 4, 3), (5, 7, 8, 6), (1, 5, 6, 2), (3, 4, 8, 7),
+             (1, 3, 7, 5), (2, 6, 8, 4)]
+    with open(path, "w") as f:
+        for x, y, z in v:
+            f.write(f"v {x} {y} {z}\n")
+        for a, b, c, d in faces:
+            f.write(f"f {a} {b} {c}\nf {a} {c} {d}\n")
+
+
 def _write_urdf(path: str, links: List[dict], boxes: List[BoxDef],
                 mesh_geoms: List[tuple] = ()):
     robot = ET.Element("robot", name="cabinet")

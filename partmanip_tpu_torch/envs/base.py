@@ -150,3 +150,27 @@ def run_physics(scene: SceneSpec, sim: SceneState, targets,
     for _ in range(control_freq_inv):
         sim = engine.physics_step(scene, sim, targets)
     return sim
+
+
+# the robot's mesh-bearing links of the scene-pose dumps
+SCENE_POSE_LINKS = tuple(f"panda_link{i}" for i in range(8)) + (
+    "panda_hand", "panda_leftfinger", "panda_rightfinger")
+
+
+def scene_pose(scene: SceneSpec, link_index, sim: SceneState, obj_quat, obj_pos):
+    """Per-step part poses for offline re-rendering / demo dumps
+    (``compute_scene_pose``/``save_scene_pose`` of the reference): rotation
+    matrices ``rot [E, 12, 3, 3]`` and positions ``pos [E, 12, 3]`` of the
+    robot's :data:`SCENE_POSE_LINKS`, then the object part (``obj_quat``
+    ``[E, 4]``, ``obj_pos`` ``[E, 3]``).  The assets are primitives, so no
+    per-mesh coordinate correction applies."""
+    from ..ops import rotations as rot
+    from ..sim import kinematics
+    E = sim.robot.qpos.shape[0]
+    fk = kinematics.forward_kinematics(scene.robot, sim.robot)
+    idx = torch.tensor([[link_index[n] for n in SCENE_POSE_LINKS]],
+                       device=sim.robot.qpos.device).expand(E, len(SCENE_POSE_LINKS))
+    rpos = kinematics._take_env(fk.link_pos, idx)
+    rrot = rot.quat_to_mat(kinematics._take_env(fk.link_quat, idx))
+    return {"rot": torch.cat([rrot, rot.quat_to_mat(obj_quat)[:, None]], dim=1),
+            "pos": torch.cat([rpos, obj_pos[:, None]], dim=1)}

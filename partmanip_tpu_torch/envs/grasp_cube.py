@@ -18,8 +18,9 @@ res³); + the 25 proprio dims with ``add_proprio_obs``.  The sizes are the
 YAML's, as in the JAX package.  With a state learn mode ``num_obs`` stays
 as the YAML says (37): the JAX package's ``_init_vision`` adds the proprio
 dims to it, though its observation concatenates none (ROADMAP Queue C).
-``scene_pose`` and ``save_video`` are not ported yet and raise
-``NotImplementedError``.
+``scene_pose`` gives the per-step part poses that evaluation capture
+dumps (``algos/ppo._eval_capture``); ``save_video`` needs nothing of the
+env (the frames are rendered by the runner).
 """
 
 from __future__ import annotations
@@ -60,10 +61,6 @@ class GraspCubeEnv:
         self.random_reset = cfg["random_reset"]
         self.learn_input_mode = cfg.get("learn_input_mode", "normal_state")
         self.add_proprio_obs = cfg.get("add_proprio_obs", False)
-        if cfg.get("save_video"):
-            raise NotImplementedError(
-                "save_video is not ported yet (ROADMAP Queue A: tooling)")
-
         rcfg = cfg["robot"]
         mobile = "mobile" in rcfg["assetFile"]
         self.built = franka.build_franka(mobile=mobile)
@@ -217,9 +214,10 @@ class GraspCubeEnv:
         return state, self._vision_obs(state, obs)
 
     def scene_pose(self, state: EnvState):
-        raise NotImplementedError(
-            "scene_pose (offline re-rendering dumps) is not ported yet "
-            "(ROADMAP Queue A: tooling)")
+        """The 11 posed robot links and the cube (:func:`base.scene_pose`):
+        ``rot [E, 12, 3, 3]``, ``pos [E, 12, 3]``."""
+        return base.scene_pose(self.scene, self.built.link_index, state.sim,
+                               state.sim.body.quat, state.sim.body.pos)
 
     # ------------------------------------------------------------------
     # observation / reward

@@ -28,8 +28,8 @@ and ``mesh_tsdf`` are ported (:mod:`vision`: the rig is built by
 ``_init_vision``, the observation added by ``_vision_obs`` after every
 reset and step); ``open_drawer.yaml`` gives no size for ``depth_img`` or
 ``rgb_img``, so those raise ``ValueError`` naming the key (the JAX
-package's DAgger fails at ``env.num_obs[mode]``).  ``scene_pose`` is not
-ported yet and raises ``NotImplementedError``.
+package's DAgger fails at ``env.num_obs[mode]``).  ``scene_pose`` gives
+the per-step part poses that evaluation capture dumps.
 """
 
 from __future__ import annotations
@@ -73,10 +73,6 @@ class OpenDrawerEnv:
         self.obj_scale = cfg["asset"].get("obj_scale", 0.5)
         if self.learn_input_mode not in STATE_OBS_MODES:
             vision.obs_size(cfg, self.learn_input_mode, self.add_proprio_obs)
-        if cfg.get("save_video"):
-            raise NotImplementedError(
-                "save_video is not ported yet (ROADMAP Queue A: tooling)")
-
         rcfg = cfg["robot"]
         mobile = "mobile" in rcfg["assetFile"]
         self.built = franka.build_franka(mobile=mobile)
@@ -308,9 +304,10 @@ class OpenDrawerEnv:
         return st, obs
 
     def scene_pose(self, state: EnvState):
-        raise NotImplementedError(
-            "scene_pose (offline re-rendering dumps) is not ported yet "
-            "(ROADMAP Queue A: tooling)")
+        """The 11 posed robot links and the object's root
+        (:func:`base.scene_pose`): ``rot [E, 12, 3, 3]``, ``pos [E, 12, 3]``."""
+        return base.scene_pose(self.scene, self.built.link_index, state.sim,
+                               state.sim.obj.root_quat, state.sim.obj.root_pos)
 
     # ------------------------------------------------------------------
     # observation / reward

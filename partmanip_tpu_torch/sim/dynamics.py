@@ -4,8 +4,9 @@ Counterpart of ``partmanip_tpu/sim/dynamics.py``.  Joint-space Lagrangian
 formulation built from the world-frame link Jacobians of :mod:`kinematics`:
 
 * mass matrix  ``M = Σ_l m_l Jv_lᵀ Jv_l + Jw_lᵀ I_l^w Jw_l``;
-* gravity bias (the velocity-product terms are not ported: the shipped
-  configs run with ``sim.coriolis: False``);
+* velocity-product (Coriolis/centrifugal + gyroscopic) and gravity bias,
+  the velocity-product term in closed form (:func:`bias_forces`), checked
+  against a forward-mode JVP through FK (:func:`bias_forces_jvp`);
 * stable high-gain PD position drives via implicit integration
   (Tan et al., "Stable Proportional-Derivative Controllers"), with drive
   effort clamping;
@@ -62,24 +63,98 @@ def bias_forces(spec: TreeSpec, state: TreeState, gravity: torch.Tensor,
                 coriolis: bool = True, fk=None) -> torch.Tensor:
     """Generalized bias τ_bias with  M q̈ = τ_applied − τ_bias.
 
-    Only the gravity part g(q) is ported; ``coriolis=True`` (the
-    velocity-product term C(q, q̇) q̇) raises.
+    τ_bias = C(q, q̇) q̇ + g(q).  The velocity-product term uses the analytic
+    time-derivative of the world-frame Jacobian columns,
+
+        for dof d with world axis a_d, anchor p_d on child link c(d):
+            ȧ_d = ω_{c(d)} × a_d
+            revolute  col:  d/dt [a_d × (x − p_d)] = ȧ_d × (x − p_d)
+                                                     + a_d × (ẋ − ṗ_d)
+            prismatic col:  d/dt a_d = ȧ_d
+
+    closed-form and branch-free; :func:`bias_forces_jvp` is the same term by
+    a JVP through the FK sweep, kept for the tests.
     """
-    if coriolis:
-        raise NotImplementedError(
-            "sim.coriolis=True is not ported yet (ROADMAP Queue A: tooling "
-            "and generic articulations); the shipped configs set it False")
     E, D = state.qpos.shape
     L = spec.num_links
     if fk is None:
         fk = kinematics.forward_kinematics(spec, state)
-    jv, _, _ = kinematics.link_jacobians(spec, fk)
+    jv, jw, com_w = kinematics.link_jacobians(spec, fk)
     mass = (spec.mass * spec.link_mask).expand(E, L)
     # gravity: τ_g = Σ_l Jvᵀ m g  (scaled per articulation; gravity_scale 0
     # disables it, as for the robot)
     gscale = spec.gravity_scale.expand(E)
     g_force = mass[..., None] * gravity[None, None, :] * gscale[:, None, None]
     tau = -torch.einsum("elad,ela->ed", jv, g_force)
+
+    if coriolis:
+        qv = state.qvel
+        v = torch.einsum("elad,ed->ela", jv, qv)        # link COM lin vel
+        w = torch.einsum("elad,ed->ela", jw, qv)        # link ang vel
+        Rm = rot.quat_to_mat(fk.link_quat)
+        Iw = torch.einsum("elab,elbc,eldc->elad", Rm,
+                          spec.inertia.expand(E, L, 3, 3), Rm)
+        rev, pris = kinematics._dof_kind(spec, E)             # [E, D]
+        dof_child = spec.dof_child.expand(E, D)
+        w_c = kinematics._take_env(w, dof_child)              # [E, D, 3]
+        # anchor (child link origin) velocities via its own jacobian rows
+        j_anchor = kinematics.frame_jacobian(spec, fk, dof_child)  # [E,D,6,Dq]
+        v_anchor = torch.einsum("edaf,ef->eda", j_anchor[:, :, :3], qv)
+        a = fk.dof_axis_w                                     # [E, D, 3]
+        adot = rot._cross(w_c, a)
+
+        anc = spec.ancestor.expand(E, L, D)
+        r = com_w[:, :, None, :] - fk.dof_anchor_w[:, None, :, :]   # [E,L,D,3]
+        dv = v[:, :, None, :] - v_anchor[:, None, :, :]             # [E,L,D,3]
+        col_rev = rot._cross(adot[:, None], r) + rot._cross(a[:, None], dv)
+        jdotv = ((col_rev * rev[:, None, :, None]
+                  + adot[:, None] * pris[:, None, :, None])
+                 * anc[..., None] * qv[:, None, :, None]).sum(dim=2)  # [E,L,3]
+        jdotw = (adot[:, None] * (rev * qv)[:, None, :, None]
+                 * anc[..., None]).sum(dim=2)                         # [E,L,3]
+
+        gyro = rot._cross(w, torch.einsum("elab,elb->ela", Iw, w))
+        tau = tau + torch.einsum("elad,ela->ed", jv, mass[..., None] * jdotv)
+        tau = tau + torch.einsum(
+            "elad,ela->ed", jw,
+            torch.einsum("elab,elb->ela", Iw, jdotw) + gyro)
+    return tau * spec.dof_mask.expand(E, D)
+
+
+def bias_forces_jvp(spec: TreeSpec, state: TreeState, gravity: torch.Tensor,
+                    coriolis: bool = True) -> torch.Tensor:
+    """Autodiff (JVP-through-FK, ``torch.func.jvp``) version of
+    :func:`bias_forces`, used only by the tests to cross-check the analytic
+    velocity-product terms."""
+    E, D = state.qpos.shape
+    L = spec.num_links
+
+    def link_vels(qpos):
+        st = state._replace(qpos=qpos)
+        fk = kinematics.forward_kinematics(spec, st)
+        jv, jw, _ = kinematics.link_jacobians(spec, fk)
+        v = torch.einsum("elad,ed->ela", jv, state.qvel)
+        w = torch.einsum("elad,ed->ela", jw, state.qvel)
+        return v, w
+
+    fk = kinematics.forward_kinematics(spec, state)
+    jv, jw, _ = kinematics.link_jacobians(spec, fk)
+    w = torch.einsum("elad,ed->ela", jw, state.qvel)
+    mass = (spec.mass * spec.link_mask).expand(E, L)
+    Rm = rot.quat_to_mat(fk.link_quat)
+    Iw = torch.einsum("elab,elbc,eldc->elad", Rm,
+                      spec.inertia.expand(E, L, 3, 3), Rm)
+    gscale = spec.gravity_scale.expand(E)
+    g_force = mass[..., None] * gravity[None, None, :] * gscale[:, None, None]
+    tau = -torch.einsum("elad,ela->ed", jv, g_force)
+    if coriolis:
+        _, (vdot_b, wdot_b) = torch.func.jvp(link_vels, (state.qpos,),
+                                             (state.qvel,))
+        gyro = rot._cross(w, torch.einsum("elab,elb->ela", Iw, w))
+        tau = tau + torch.einsum("elad,ela->ed", jv, mass[..., None] * vdot_b)
+        tau = tau + torch.einsum(
+            "elad,ela->ed", jw,
+            torch.einsum("elab,elb->ela", Iw, wdot_b) + gyro)
     return tau * spec.dof_mask.expand(E, D)
 
 

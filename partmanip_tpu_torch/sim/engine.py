@@ -55,13 +55,8 @@ class SceneState(NamedTuple):
 
 
 def check_supported(scene: SceneSpec) -> None:
-    """Raise with the reason when the scene has a part the port does not
-    simulate yet (the velocity-product terms) or a part without what it
+    """Raise with the reason when the scene has a part without what it
     needs."""
-    if scene.params.coriolis:
-        raise NotImplementedError(
-            "sim.coriolis=True is not ported yet (ROADMAP Queue A: tooling "
-            "and generic articulations)")
     if (scene.obj_tree is None) != (scene.obj_boxes is None):
         raise NotImplementedError(
             "an articulated object needs both its tree and its collision "

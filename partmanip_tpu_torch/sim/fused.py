@@ -1,20 +1,31 @@
 """Wrapper of the fused physics inner-step CUDA kernels: variant B1a (robot
 + ground + one free box, grasp_cube), variant B1b (robot + ground + one
-articulated object with box geoms, open_drawer) and variant B1c (B1b plus
-baked mesh-SDF geoms on the object, open_drawer with mesh handles).
+articulated object with box geoms, open_drawer), variant B1c (B1b plus
+baked mesh-SDF geoms on the object, open_drawer with mesh handles) and
+variant B1d (the robot and the ground alone, the controller-calibration
+scene of ``tune_pid_torch.py``).
 
 Counterpart of ``partmanip_tpu/sim/fused.py`` (``fused_physics_step`` around
 the Pallas kernel ``_inner_step_tiled``, whose ``has_body`` / ``has_obj`` /
-``n_grid > 0`` variants become kernels here; the TPU build's separate grid
-narrowphase ``_grid_narrowphase`` runs inside B1c).  The kernel sources are
-``csrc/fused_inner_step.cu`` (B1a) and ``csrc/fused_inner_step_obj.cu``
-(B1b; B1c is the same file compiled with ``FIS_K > 0``), sharing
-``csrc/fused_common.cuh``, ``fused_geom.cuh`` and ``fused_warp.cuh``; each
-is compiled with ``nvcc`` for ``sm_90a`` at
-first use into a shared library with a plain C interface, keyed on every
-compile-time size, and loaded with ``ctypes`` (``utils/cuda_lib.py``, shared
-by every kernel of the port).  Nothing here needs ``nvcc`` or a GPU at
-import time.
+``n_grid > 0`` variants, and the one with neither flag, become kernels
+here; the TPU build's separate grid narrowphase ``_grid_narrowphase`` runs
+inside B1c).  The kernel sources are ``csrc/fused_inner_step.cu`` (B1a; B1d
+is the same file compiled with ``FIS_BODY=0``) and
+``csrc/fused_inner_step_obj.cu`` (B1b; B1c is the same file compiled with
+``FIS_K > 0``), sharing ``csrc/fused_common.cuh``, ``fused_geom.cuh``,
+``fused_warp.cuh`` and ``fused_bias.cuh``; each is compiled with ``nvcc``
+for ``sm_90a`` at first use into a shared library with a plain C interface,
+keyed on every compile-time size, and loaded with ``ctypes``
+(``utils/cuda_lib.py``, shared by every kernel of the port).  Nothing here
+needs ``nvcc`` or a GPU at import time.
+
+A scene with ``coriolis=True`` or a tree under gravity (a non-zero
+``gravity_scale``) runs the same variant built with ``FIS_BIAS=1``: its
+solves subtract each tree's bias (``dynamics.bias_forces``), which the
+kernel computes from what its mass-matrix phase holds.  The TPU kernel
+declined such scenes and left them to XLA; here a CUDA state is launched or
+raises, so the kernel computes them.  The other scenes, which are all that
+the shipped configs make, run the builds they ran before.
 
 * :func:`fused_physics_step` — what ``engine.physics_step`` calls: all
   ``substeps × inner_substeps`` inner steps of one physics step in ONE
@@ -74,15 +85,16 @@ from .types import FreeBodyState, HostCache, TreeState
 
 KERNEL_SOURCE = os.path.join(cuda_lib.CSRC, "fused_inner_step.cu")          # B1a
 KERNEL_SOURCE_OBJ = os.path.join(cuda_lib.CSRC, "fused_inner_step_obj.cu")  # B1b
-# B1c is B1b's source compiled with FIS_K > 0
-KERNEL_SOURCES = {"b1a": KERNEL_SOURCE, "b1b": KERNEL_SOURCE_OBJ, "b1c": KERNEL_SOURCE_OBJ}
+# B1c is B1b's source compiled with FIS_K > 0, B1d B1a's with FIS_BODY=0
+KERNEL_SOURCES = {"b1a": KERNEL_SOURCE, "b1b": KERNEL_SOURCE_OBJ, "b1c": KERNEL_SOURCE_OBJ,
+                  "b1d": KERNEL_SOURCE}
 DIM_NAMES = ("L", "D", "S", "Lo", "Do", "G", "K", "X", "Y", "Z")
 DIM_MACROS = ("FIS_L", "FIS_D", "FIS_S", "FIS_LO", "FIS_DO", "FIS_G", "FIS_K",
               "FIS_GX", "FIS_GY", "FIS_GZ")
 
 # Number of kernel launches made by this module since import / the last
 # reset, per variant.
-launch_counts = cuda_lib.launch_counter("b1a", "b1b", "b1c")
+launch_counts = cuda_lib.launch_counter("b1a", "b1b", "b1c", "b1d")
 
 # B1b / B1c give each env a warp: WARPS envs a block, the robot's Spec once
 # per block and each env's records and working set (struct Work) in shared
@@ -97,18 +109,27 @@ _UPLOADED = {}        # library path -> id of the packed spec on the device
 _CONFIG_CHECKED = set()  # library paths whose launch configuration was checked
 
 
-def library(variant: str, dims) -> cuda_lib.Library:
+def library(variant: str, dims, bias: bool = False) -> cuda_lib.Library:
     """``variant``'s kernel library for these array sizes (every
-    compile-time size is a macro and is in the library's name)."""
+    compile-time size is a macro and is in the library's name), built with
+    the tree bias when ``bias`` (``FIS_BIAS=1``, ``_bias`` in the name).
+    B1d is B1a's source with ``FIS_BODY=0`` (``_robot`` in the name); the
+    other builds pass neither macro."""
     dims = tuple(int(d) for d in dims)
     tag = "_".join(f"{n}{d}" for n, d in zip(DIM_NAMES, dims))
     defines = list(zip(DIM_MACROS, dims))
+    if variant == "b1d":
+        defines.append(("FIS_BODY", 0))
+        tag += "_robot"
+    if bias:
+        defines.append(("FIS_BIAS", 1))
+        tag += "_bias"
     stem = os.path.splitext(os.path.basename(KERNEL_SOURCES[variant]))[0]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     sig = {"fis_spec_bytes": ((), i32), "fis_state_rows": ((), i32),
            "fis_dims": ((i32,), i32), "fis_set_spec": ((ptr, i32, ptr), i32),
            "fis_launch_config": ((i32,), i32), "fis_occupancy": ((ptr,), i32)}
-    if variant == "b1a":
+    if variant in ("b1a", "b1d"):
         sig["fis_launch"] = ((ptr, ptr, ptr, ptr, i32, i32, ptr), i32)
     elif variant == "b1b":
         sig["fis_obj_bytes"] = ((), i32)
@@ -118,8 +139,15 @@ def library(variant: str, dims) -> cuda_lib.Library:
         sig["fis_grid_bytes"] = ((), i32)
         sig["fis_launch"] = ((ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, i32,
                               i32, i32, ptr), i32)
-    return cuda_lib.Library(variant, KERNEL_SOURCES[variant], f"lib{stem}_{tag}.so",
+    name = variant + ("_bias" if bias else "")
+    return cuda_lib.Library(name, KERNEL_SOURCES[variant], f"lib{stem}_{tag}.so",
                             sig, defines=defines)
+
+
+def scene_library(scene: engine.SceneSpec) -> cuda_lib.Library:
+    """The library that runs this scene: its variant at its sizes, with the
+    tree bias when it needs one (:func:`needs_bias`)."""
+    return library(variant(scene), _dims(scene), needs_bias(scene))
 
 
 # ----------------------------------------------------------------------
@@ -135,12 +163,8 @@ def check_scene(scene: engine.SceneSpec) -> None:
     if has_obj and scene.free_body is not None:
         raise NotImplementedError(
             "a scene with both a free body and an articulated object has no "
-            "fused kernel yet (B1a takes the free body, B1b the object)")
-    if not has_obj and scene.free_body is None:
-        raise NotImplementedError(
-            "the fused kernels take robot + ground + a free body (B1a) or "
-            "an articulated object (B1b); a scene with neither is not "
-            "ported yet")
+            "fused kernel yet (B1a takes the free body, B1b the object; "
+            "ROADMAP Queue B: B1 body+obj)")
     if scene.robot.parent.shape[0] != 1:
         raise NotImplementedError(
             "the fused kernel needs one robot topology shared by all envs")
@@ -151,6 +175,8 @@ def check_scene(scene: engine.SceneSpec) -> None:
                 "mask: at most 32 object boxes")
         if scene.obj_grids is not None:
             _check_grids(scene)
+        return
+    if scene.free_body is None:
         return
     for name, leaf in zip(scene.free_body._fields, scene.free_body):
         if leaf.shape[0] != 1:
@@ -200,10 +226,6 @@ def _robot_words(scene: engine.SceneSpec):
     """The robot tree and the sphere table, as the leading fields of both
     kernels' ``Spec`` structs."""
     r, s = scene.robot, scene.spheres
-    if float(r.gravity_scale.abs().max()) != 0.0:
-        raise NotImplementedError(
-            "the fused kernel assumes robot gravity_scale == 0 (gravity "
-            "disabled for the arm, as the Franka spec sets it)")
     return [
         _i32(r.parent[0]), _i32(r.joint_type[0]), _i32(r.dof_idx[0]),
         _i32(r.dof_child[0]), _i32(s.link_idx),
@@ -228,29 +250,61 @@ def _contact_coefs(p):
     return cd, coef, cdt
 
 
-def pack_spec(scene: engine.SceneSpec) -> np.ndarray:
+def needs_bias(scene: engine.SceneSpec) -> bool:
+    """Whether the scene's solves need the tree bias (the ``FIS_BIAS``
+    build): the velocity-product term is on, or a tree is under gravity."""
+    if scene.params.coriolis:
+        return True
+    trees = [scene.robot] + ([] if scene.obj_tree is None else [scene.obj_tree])
+    return any(float(t.gravity_scale.abs().max()) != 0.0 for t in trees)
+
+
+def _bias_words(scene: engine.SceneSpec):
+    """The bias build's last ``Spec`` fields: the robot's gravity_scale and
+    the coriolis flag."""
+    gs = _f32(scene.robot.gravity_scale)
+    if not np.all(gs == gs[0]):
+        raise NotImplementedError(
+            "the fused kernel needs one robot gravity_scale shared by all envs")
+    return [_scalars(gs[0], 1.0 if scene.params.coriolis else 0.0)]
+
+
+def pack_spec(scene: engine.SceneSpec, bias: bool = False) -> np.ndarray:
     """The scene as kernel B1a's ``Spec`` struct (field order of
-    ``csrc/fused_inner_step.cu``), a flat array of 4-byte words."""
+    ``csrc/fused_inner_step.cu``), a flat array of 4-byte words; without a
+    free body, B1d's (``FIS_BODY=0``: the box's fields left out); with
+    ``bias``, the ``FIS_BIAS`` build's (the bias fields at the end)."""
     fb, p = scene.free_body, scene.params
     h, kn = p.h, p.contact_kn
-    m_cube = float(_f32(fb.mass)[0])
     cd, coef, cdt = _contact_coefs(p)
-    words = _robot_words(scene) + [
-        _f32(fb.mass[:1]), _f32(fb.inertia[0]), _f32(fb.half_extents[0]),
-        _f32(fb.gravity_scale[:1]), _f32(fb.friction[:1]),
-        _scalars(h, p.gravity, kn, p.contact_kt, p.max_depenetration_velocity,
-                 0.1,                              # ground friction
-                 cd(0.5), cd(m_cube), cd(m_cube / 4.0), coef(0.5), coef(m_cube),
-                 contact.ANCHOR_KS, cdt, h * cdt + h * h * contact.ANCHOR_KS,
-                 contact.FREE_BODY_HOLD_VEL, dynamics._FRICTION_VEPS,
-                 dynamics._BRAKE_BETA, dynamics._SAT_VEPS),
-    ]
+    tail = [dynamics._FRICTION_VEPS, dynamics._BRAKE_BETA, dynamics._SAT_VEPS]
+    if fb is None:
+        words = _robot_words(scene) + [
+            _scalars(h, p.gravity, kn, p.contact_kt, p.max_depenetration_velocity,
+                     0.1,                          # ground friction
+                     cd(0.5), coef(0.5),
+                     contact.ANCHOR_KS, cdt, h * cdt + h * h * contact.ANCHOR_KS, *tail),
+        ]
+    else:
+        m_cube = float(_f32(fb.mass)[0])
+        words = _robot_words(scene) + [
+            _f32(fb.mass[:1]), _f32(fb.inertia[0]), _f32(fb.half_extents[0]),
+            _f32(fb.gravity_scale[:1]), _f32(fb.friction[:1]),
+            _scalars(h, p.gravity, kn, p.contact_kt, p.max_depenetration_velocity,
+                     0.1,                          # ground friction
+                     cd(0.5), cd(m_cube), cd(m_cube / 4.0), coef(0.5), coef(m_cube),
+                     contact.ANCHOR_KS, cdt, h * cdt + h * h * contact.ANCHOR_KS,
+                     contact.FREE_BODY_HOLD_VEL, *tail),
+        ]
+    if bias:
+        words += _bias_words(scene)
     return np.ascontiguousarray(np.concatenate(words))
 
 
-def pack_spec_obj(scene: engine.SceneSpec) -> np.ndarray:
+def pack_spec_obj(scene: engine.SceneSpec, bias: bool = False) -> np.ndarray:
     """The robot and the contact constants as kernel B1b's ``Spec`` struct
-    (field order of ``csrc/fused_inner_step_obj.cu``)."""
+    (field order of ``csrc/fused_inner_step_obj.cu``; with ``bias``, the
+    ``FIS_BIAS`` build's)."""
     p = scene.params
     h, kn = p.h, p.contact_kn
     cd, coef, cdt = _contact_coefs(p)
@@ -262,23 +316,22 @@ def pack_spec_obj(scene: engine.SceneSpec) -> np.ndarray:
                  dynamics._FRICTION_VEPS, dynamics._BRAKE_BETA,
                  dynamics._SAT_VEPS),
     ]
+    if bias:
+        words += _bias_words(scene)
     return np.ascontiguousarray(np.concatenate(words))
 
 
-def pack_obj_table(scene: engine.SceneSpec):
+def pack_obj_table(scene: engine.SceneSpec, bias: bool = False):
     """The per-env articulated object as kernel B1b's ``ObjSpec`` records:
     ``(tables, obj_id i32 [E])`` with ``tables = (f32 [n_obj, words],)``,
     one record per distinct object, ``tables[0][obj_id]`` equal to the
     per-env spec it was made from (checked).  With mesh-SDF geoms (B1c)
     ``tables`` also holds each object's ``GridSpec`` record:
-    ``(objs, grids)``, indexed by the same ``obj_id``."""
+    ``(objs, grids)``, indexed by the same ``obj_id``.  With ``bias`` each
+    record ends with the object's gravity_scale (the ``FIS_BIAS`` build)."""
     o, b, gg = scene.obj_tree, scene.obj_boxes, scene.obj_grids
     leaves = (*o, *b) if gg is None else (*o, *b, *gg)
     E = max(leaf.shape[0] for leaf in leaves)
-    if float(o.gravity_scale.abs().max()) != 0.0:
-        raise NotImplementedError(
-            "kernel B1b assumes object gravity_scale == 0 (the cabinet's "
-            "gravity is disabled, as the open_drawer env sets it)")
     mask = _f32(b.geom_mask)
     if not np.all((mask == 0.0) | (mask == 1.0)):
         raise NotImplementedError("kernel B1b takes box masks of 0 or 1 only")
@@ -300,7 +353,7 @@ def pack_obj_table(scene: engine.SceneSpec):
         f32(o.drive_kd),
         f32(b.offset_pos), f32(b.offset_quat), f32(b.half_extents),
         f32(b.geom_mask), f32(b.friction),
-    ]
+    ] + ([f32(o.gravity_scale)] if bias else [])
     n_obj_words = sum(c.shape[1] for c in cols)
     if gg is not None:
         gmask = _f32(gg.geom_mask)
@@ -328,20 +381,22 @@ def _packed(scene: engine.SceneSpec) -> dict:
     per scene: packing reads the device back."""
     slot = _PACKED.get(scene.robot.parent, dict)
     # scenes may share a robot and differ in the rest
-    key = (scene.params, id(scene.spheres.link_idx),
+    key = (scene.params, id(scene.spheres.link_idx), id(scene.robot.gravity_scale),
            None if scene.free_body is None else id(scene.free_body.mass),
            None if scene.obj_tree is None else (id(scene.obj_tree.parent),
-                                                id(scene.obj_boxes.link_idx)),
+                                                id(scene.obj_boxes.link_idx),
+                                                id(scene.obj_tree.gravity_scale)),
            None if scene.obj_grids is None else (id(scene.obj_grids.link_idx),
                                                  id(scene.grid_stack.sdf)))
     if slot.get("key") != key:
         slot.clear()
-        if variant(scene) == "b1a":
-            slot.update(key=key, spec=pack_spec(scene))
+        bias = needs_bias(scene)
+        if variant(scene) in ("b1a", "b1d"):
+            slot.update(key=key, spec=pack_spec(scene, bias), bias=bias)
         else:
-            tables, obj_id = pack_obj_table(scene)
-            slot.update(key=key, spec=pack_spec_obj(scene), tables=tables,
-                        obj_id=obj_id, device={})
+            tables, obj_id = pack_obj_table(scene, bias)
+            slot.update(key=key, spec=pack_spec_obj(scene, bias), tables=tables,
+                        obj_id=obj_id, device={}, bias=bias)
     return slot
 
 
@@ -352,19 +407,21 @@ def _packed_spec(scene: engine.SceneSpec) -> np.ndarray:
 
 def variant(scene: engine.SceneSpec) -> str:
     """The kernel that runs this scene: B1c with mesh-SDF geoms, B1b with an
-    articulated object, B1a (free body) otherwise."""
+    articulated object, B1a with a free body, B1d with neither."""
     if scene.obj_grids is not None:
         return "b1c"
-    return "b1a" if scene.obj_tree is None else "b1b"
+    if scene.obj_tree is not None:
+        return "b1b"
+    return "b1a" if scene.free_body is not None else "b1d"
 
 
 def _dims(scene: engine.SceneSpec):
-    """The kernel's compile-time sizes: (L, D, S) for B1a, (L, D, S, Lo, Do,
-    G) for B1b, and for B1c also K and the grid stack's (X, Y, Z)."""
+    """The kernel's compile-time sizes: (L, D, S) for B1a and B1d, (L, D, S,
+    Lo, Do, G) for B1b, and for B1c also K and the grid stack's (X, Y, Z)."""
     dims = (scene.robot.num_links, scene.robot.num_dofs,
             scene.spheres.link_idx.shape[0])
     kind = variant(scene)
-    if kind == "b1a":
+    if kind in ("b1a", "b1d"):
         return dims
     dims += (scene.obj_tree.num_links, scene.obj_tree.num_dofs,
              scene.obj_boxes.link_idx.shape[-1])
@@ -380,6 +437,12 @@ def state_rows(D: int, S: int) -> int:
     return D + D + 3 + 4 + 3 + 4 + 3 + 3 + 3 * S + D
 
 
+def state_rows_robot(D: int, S: int) -> int:
+    """Rows of B1d's env-minor state buffer: qpos, qvel, root pose, anchor
+    points, targets (B1a's without the body rows)."""
+    return D + D + 3 + 4 + 3 * S + D
+
+
 def state_rows_obj(D: int, S: int, Do: int) -> int:
     """Rows of B1b's env-minor state buffer: qpos, qvel, root pose, object
     qpos, qvel and root pose, anchor points, targets."""
@@ -388,44 +451,61 @@ def state_rows_obj(D: int, S: int, Do: int) -> int:
 
 def _rows(variant: str, dims) -> int:
     L, D, S = dims[:3]
-    return state_rows(D, S) if variant == "b1a" else state_rows_obj(D, S, dims[4])
+    if variant == "b1a":
+        return state_rows(D, S)
+    return state_rows_robot(D, S) if variant == "b1d" else state_rows_obj(D, S, dims[4])
 
 
-def struct_words(dims) -> dict:
+def _bias_scratch(L: int, D: int) -> int:
+    """Scratch floats the bias adds after a tree's mass matrix
+    (``FIS_BIAS_SCRATCH`` of ``csrc/fused_bias.cuh``)."""
+    return L * 12 + D * 6
+
+
+def struct_words(dims, body: bool = True, bias: bool = False) -> dict:
     """4-byte words of the kernel's structs at these sizes: for B1a (dims
     (L, D, S)) ``Spec`` and the per-env working set ``Work`` of
-    ``csrc/fused_inner_step.cu``, for B1b / B1c ``Spec``, ``ObjSpec``,
-    ``GridSpec`` and ``Work`` of ``csrc/fused_inner_step_obj.cu``; the
-    scratch area is the largest of the phases that reuse it."""
+    ``csrc/fused_inner_step.cu`` (B1d: ``body`` False, the box's fields
+    and rows left out), for B1b / B1c ``Spec``, ``ObjSpec``, ``GridSpec``
+    and ``Work`` of ``csrc/fused_inner_step_obj.cu``; with ``bias`` the
+    ``FIS_BIAS`` build's.  The scratch area is the largest of the phases
+    that reuse it."""
     if len(dims) == 3:
         L, D, S = dims
-        scratch = max(7 * L, D * D, L * 12 + L * D * 6, S * D * 3 + S * 12)
-        work = (12 * D + 20 + 7 * L + D * (D + 1)     # state, targets, poses, axes, M, Ac, tau
-                + 13 * S + scratch)                  # sphere records and anchors, scratch
-        return {"spec": 26 * L + L * D + 11 * D + 7 * S + 33, "work": work}
+        mass = L * 12 + L * D * 6 + (_bias_scratch(L, D) if bias else 0)
+        scratch = max(7 * L, D * D, mass, S * D * 3 + S * 12)
+        work = (12 * D + 7 * L + D * (D + 1)          # state, targets, poses, axes, M, Ac, tau
+                + (20 + 13 * S if body else 7 + 9 * S)   # roots and body, sphere records
+                + scratch + (D if bias else 0))      # scratch, the bias
+        spec = 26 * L + L * D + 11 * D + 7 * S + (33 if body else 14) + (2 if bias else 0)
+        return {"spec": spec, "work": work}
     L, D, S, Lo, Do, G = dims[:6]
     K = dims[6] if len(dims) > 6 else 0
     KG = max(K, 1)
     tri, trio = D * (D + 1) // 2, Do * (Do + 1) // 2
-    scratch = max(7 * (L + Lo), 2 * D * D, L * 12 + L * D * 6, Lo * 12 + Lo * Do * 6,
+    extra = (lambda nl, nd: _bias_scratch(nl, nd)) if bias else (lambda nl, nd: 0)
+    scratch = max(7 * (L + Lo), 2 * D * D, L * 12 + L * D * 6 + extra(L, D),
+                  Lo * 12 + Lo * Do * 6 + extra(Lo, Do),
                   S * D * 3 + max(S * G + S * KG, S * D * 3))
     work = (2 * D + 2 * Do + 14 + D                       # state rows, targets
             + 7 * L + 8 * D + 2 * tri + D                 # robot poses, axes, M, Ac, tau
             + 7 * Lo + 8 * Do + 2 * trio + Do             # the object's
             + 8 * G + 8 * KG                              # geom poses, active lists
-            + 16 * S + scratch)                           # sphere records, scratch
-    return {"spec": 26 * L + L * D + 11 * D + 7 * S + 16,
-            "obj": 26 * Lo + Lo * Do + 11 * Do + 13 * G, "grid": 11 * K,
-            "work": work}
+            + 16 * S + scratch                            # sphere records, scratch
+            + (D + Do if bias else 0))                    # the biases
+    return {"spec": 26 * L + L * D + 11 * D + 7 * S + 16 + (2 if bias else 0),
+            "obj": 26 * Lo + Lo * Do + 11 * Do + 13 * G + (1 if bias else 0),
+            "grid": 11 * K, "work": work}
 
 
-def launch_config(E: int, dims) -> dict:
-    """The kernel's launch for E envs at these sizes.  B1a (dims (L, D,
-    S)): two envs a warp, B1A_WARPS warps a block, and the block's dynamic
-    shared memory: the Spec once, then a Work per env.  B1b / B1c: a warp
-    per env, WARPS envs a block, the Spec once, then WARPS x (Work,
-    ObjSpec, GridSpec)."""
-    w = struct_words(dims)
+def launch_config(E: int, dims, body: bool = True, bias: bool = False) -> dict:
+    """The kernel's launch for E envs at these sizes.  B1a / B1d (dims (L,
+    D, S); B1d without the ``body``): two envs a warp, B1A_WARPS warps a
+    block, and the block's dynamic shared memory: the Spec once, then a
+    Work per env.  B1b / B1c: a warp per env, WARPS envs a block, the Spec
+    once, then WARPS x (Work, ObjSpec, GridSpec).  ``bias``: the
+    ``FIS_BIAS`` build."""
+    w = struct_words(dims, body, bias)
     if len(dims) == 3:
         envs = 2 * B1A_WARPS
         return {"envs_per_warp": 2, "warps_per_block": B1A_WARPS, "envs_per_block": envs,
@@ -443,7 +523,7 @@ def occupancy(scene: engine.SceneSpec) -> int:
     device)."""
     kind = variant(scene)
     out = ctypes.c_int(0)
-    err = library(kind, _dims(scene)).load().fis_occupancy(ctypes.byref(out))
+    err = scene_library(scene).load().fis_occupancy(ctypes.byref(out))
     cuda_lib.check_launch(err, f"fused_inner_step ({kind}) occupancy query")
     return out.value
 
@@ -454,15 +534,17 @@ def occupancy(scene: engine.SceneSpec) -> int:
 
 def pack_state(state: engine.SceneState, pos_targets):
     """SceneState + targets → (f32 [rows, E], i32 [S, E]), env-minor; the
-    free body's rows for B1a, the object's for B1b."""
+    free body's rows for B1a, the object's for B1b, neither for B1d."""
     E = state.robot.qpos.shape[0]
     r = state.robot
     if state.obj is not None:
         o = state.obj
         part = [o.qpos, o.qvel, o.root_pos, o.root_quat]
-    else:
+    elif state.body is not None:
         b = state.body
         part = [b.pos, b.quat, b.linvel, b.angvel]
+    else:
+        part = []
     flat = torch.cat([r.qpos, r.qvel, r.root_pos, r.root_quat, *part,
                       state.anchors.point.reshape(E, -1), pos_targets], dim=1)
     return (flat.t().contiguous(),
@@ -478,16 +560,18 @@ def unpack_state(buf, anc_b, like: engine.SceneState) -> engine.SceneState:
     c = lambda x: x.contiguous()
     if like.obj is not None:
         Do = like.obj.qpos.shape[1]
-        sizes = [D, D, 3, 4, Do, Do, 3, 4, 3 * S, D]
+        part = [Do, Do, 3, 4]
+    elif like.body is not None:
+        part = [3, 4, 3, 3]
     else:
-        sizes = [D, D, 3, 4, 3, 4, 3, 3, 3 * S, D]
-    qpos, qvel, root_pos, root_quat, p0, p1, p2, p3, anc_p, _ = \
-        torch.split(rows, sizes, dim=1)
+        part = []
+    qpos, qvel, root_pos, root_quat, *p, anc_p, _ = torch.split(
+        rows, [D, D, 3, 4, *part, 3 * S, D], dim=1)
     obj, body = like.obj, like.body
     if like.obj is not None:
-        obj = TreeState(qpos=c(p0), qvel=c(p1), root_pos=c(p2), root_quat=c(p3))
-    else:
-        body = FreeBodyState(pos=c(p0), quat=c(p1), linvel=c(p2), angvel=c(p3))
+        obj = TreeState(qpos=c(p[0]), qvel=c(p[1]), root_pos=c(p[2]), root_quat=c(p[3]))
+    elif like.body is not None:
+        body = FreeBodyState(pos=c(p[0]), quat=c(p[1]), linvel=c(p[2]), angvel=c(p[3]))
     return engine.SceneState(
         robot=TreeState(qpos=c(qpos), qvel=c(qvel), root_pos=c(root_pos),
                         root_quat=c(root_quat)),
@@ -520,20 +604,21 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
         raise ValueError("state buffers must be contiguous")
     check_scene(scene)
 
-    lib_def = library(kind, dims)
+    packed = _packed(scene)
+    bias = packed["bias"]
+    lib_def = library(kind, dims, bias)
     lib = lib_def.load()
     got = tuple(lib.fis_dims(i) for i in range(len(dims)))
     if got != tuple(dims):
         raise RuntimeError(f"{kind} library was built for sizes {got}, not {dims}")
-    packed = _packed(scene)
     spec = packed["spec"]
     if spec.nbytes != lib.fis_spec_bytes() or rows != lib.fis_state_rows():
         raise RuntimeError(
             f"packing disagrees with the kernel: spec {spec.nbytes} vs "
             f"{lib.fis_spec_bytes()} bytes, rows {rows} vs {lib.fis_state_rows()}")
     if lib_def.path not in _CONFIG_CHECKED:
-        cfg = launch_config(E, dims)
-        if kind == "b1a":
+        cfg = launch_config(E, dims, kind != "b1d", bias)
+        if kind in ("b1a", "b1d"):
             got = tuple(lib.fis_launch_config(i) for i in range(4))
             want = (cfg["envs_per_block"], cfg["threads"], cfg["dynamic_smem_bytes"],
                     cfg["envs_per_warp"])
@@ -543,7 +628,7 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
         if got != want:
             raise RuntimeError(f"launch configuration disagrees with the kernel: {got} vs {cfg}")
         _CONFIG_CHECKED.add(lib_def.path)
-    if kind != "b1a":
+    if kind not in ("b1a", "b1d"):
         tables = packed["tables"]
         if kind == "b1c":
             if tables[1].shape[1] * 4 != lib.fis_grid_bytes():
@@ -576,7 +661,7 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
             _UPLOADED[lib_def.path] = id(spec)
         out = torch.empty_like(buf)
         anc_out = torch.empty_like(anc_b)
-        if kind == "b1a":
+        if kind in ("b1a", "b1d"):
             err = lib.fis_launch(buf.data_ptr(), anc_b.data_ptr(), out.data_ptr(),
                                  anc_out.data_ptr(), E, int(n_steps), stream)
         elif kind == "b1b":

@@ -149,8 +149,8 @@ class SimParams(NamedTuple):
     contact_kt: float = 1.0e3    # tangential (friction) damping [N·s/m]
     contact_offset: float = 0.005  # activation distance
     max_depenetration_velocity: float = 1.0
-    # Velocity-product (Coriolis/centrifugal) terms; not ported (the shipped
-    # configs run with coriolis off) — physics_step raises when set.
+    # Velocity-product (Coriolis/centrifugal + gyroscopic) terms of the tree
+    # bias; the shipped configs run with them off.
     coriolis: bool = True
     # Kept so the merged configs of the two packages compare equal; in the
     # port CUDA tensors always go through the fused kernel.

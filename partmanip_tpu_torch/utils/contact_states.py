@@ -297,6 +297,8 @@ def touching_counts(env, state) -> dict:
                           grid_queries_inside=int(inside.sum()),
                           anchors_on_grids=int((body >= koff).sum()))
         return counts
+    if env.scene.free_body is None:          # the robot and the ground alone
+        return counts
     p_local = rot.quat_rotate_inverse(
         state.body.quat[:, None], centers - state.body.pos[:, None])
     dist, _ = contact.box_sdf(

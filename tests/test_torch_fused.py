@@ -146,11 +146,23 @@ def _unsupported_scenes(scene):
 @pytest.mark.parametrize("what", ["coriolis", "obj_tree", "obj_grids"])
 def test_unsupported_scene_raises_with_reason(envs, what):
     """The JAX package's ``fused_supported`` silently switched paths; the
-    port refuses, naming the part that is not ported."""
+    port refuses, naming the part that is not ported.  ``coriolis`` was
+    such a part and is ported: on the CPU the plain version takes it (equal
+    to the wrapper's CPU route), and on the card the B1a build with
+    ``FIS_BIAS=1``."""
     tenv = envs[2]
     scene = _unsupported_scenes(tenv.scene)[what]
     sim = tenv._default_sim(E)
     targets = torch.as_tensor(np.tile(tenv.default_dof, (E, 1)))
+    if what == "coriolis":
+        fused.check_scene(scene)
+        assert fused.needs_bias(scene) and not fused.needs_bias(tenv.scene)
+        assert ("FIS_BIAS", 1) in fused.scene_library(scene).defines
+        out = tengine.physics_step(scene, sim, targets)
+        assert torch.equal(out.robot.qvel,
+                           fused.fused_physics_step(scene, sim, targets).robot.qvel)
+        assert bool(torch.isfinite(out.robot.qvel).all())
+        return
     with pytest.raises(NotImplementedError, match=what):
         tengine.physics_step(scene, sim, targets)
     with pytest.raises(NotImplementedError, match=what):
@@ -158,9 +170,18 @@ def test_unsupported_scene_raises_with_reason(envs, what):
 
 
 def test_no_free_body_raises(envs):
+    """Without its free body the scene used to be refused; it is the robot
+    and the ground alone now, which kernel B1d runs (B1a's source with
+    ``FIS_BODY=0``).  A free body beside an articulated object still has no
+    kernel (ROADMAP Queue B)."""
     tenv = envs[2]
-    with pytest.raises(NotImplementedError, match="free"):
-        fused.check_scene(tenv.scene._replace(free_body=None))
+    robot_only = tenv.scene._replace(free_body=None)
+    fused.check_scene(robot_only)
+    assert fused.variant(robot_only) == "b1d"
+    assert ("FIS_BODY", 0) in fused.scene_library(robot_only).defines
+    with pytest.raises(NotImplementedError, match="Queue B"):
+        fused.check_scene(tenv.scene._replace(obj_tree=tenv.scene.robot,
+                                              obj_boxes=object()))
 
 
 def test_n_steps_plumbing_on_the_plain_path(envs):

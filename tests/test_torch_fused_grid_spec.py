@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cu
 import _torch_vision as tv
 
 from partmanip_tpu_torch.config import process_cfgs
@@ -45,8 +46,8 @@ def menv(tmp_path_factory):
 def _struct_words(name, dims):
     """{field: (offset, words)} and the size of ``struct name`` in 4-byte
     words, parsed from the kernel source."""
-    with open(fused.KERNEL_SOURCE_OBJ) as f:
-        body = re.search(r"struct %s \{(.*?)\n\};" % name, f.read(), re.S).group(1)
+    body = re.search(r"struct %s \{(.*?)\n\};" % name, _torch_cu.read(fused.KERNEL_SOURCE_OBJ),
+                     re.S).group(1)
     offsets, words = {}, 0
     for _, field, extents in re.findall(
             r"^\s*(int|float)\s+(\w+)((?:\[\w+\])*);", body, re.M):

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cu
 from partmanip_tpu_torch.config import process_cfgs
 from partmanip_tpu_torch.envs.open_drawer import OpenDrawerEnv
 from partmanip_tpu_torch.sim import engine, fused
@@ -30,9 +31,9 @@ def denv(tmp_path_factory):
     return OpenDrawerEnv(cfg["task"], sp, device="cpu")
 
 
-def _struct_offsets(name, dims):
-    with open(fused.KERNEL_SOURCE_OBJ) as f:
-        body = re.search(r"struct %s \{(.*?)\n\};" % name, f.read(), re.S).group(1)
+def _struct_offsets(name, dims, macros=None):
+    body = re.search(r"struct %s \{(.*?)\n\};" % name,
+                     _torch_cu.read(fused.KERNEL_SOURCE_OBJ, macros), re.S).group(1)
     offsets, words = {}, 0
     for _, field, extents in re.findall(
             r"^\s*(int|float)\s+(\w+)((?:\[\w+\])*);", body, re.M):
@@ -101,8 +102,7 @@ def test_obj_table_matches_the_kernel_struct(denv):
 
 
 def test_state_rows_match_the_kernel_enum(denv):
-    with open(fused.KERNEL_SOURCE_OBJ) as f:
-        rows = re.search(r"enum \{(.*?)\};", f.read(), re.S).group(1)
+    rows = re.search(r"enum \{(.*?)\};", _torch_cu.read(fused.KERNEL_SOURCE_OBJ), re.S).group(1)
     assert re.findall(r"(\w+)\s*=", rows) == [
         "R_QPOS", "R_QVEL", "R_ROOTP", "R_ROOTQ", "R_OQ", "R_OV", "R_ORP", "R_ORQ",
         "R_ANCP", "R_TGT", "FIS_NF"]
@@ -162,7 +162,7 @@ def test_cpu_state_never_touches_the_build(denv, monkeypatch):
     out = engine.physics_step(denv.scene, sim, targets)
     via_wrapper = fused.fused_physics_step(denv.scene, sim, targets)
     assert torch.equal(out.obj.qpos, via_wrapper.obj.qpos)
-    assert fused.launch_counts == {"b1a": 0, "b1b": 0, "b1c": 0}
+    assert fused.launch_counts == {"b1a": 0, "b1b": 0, "b1c": 0, "b1d": 0}
     monkeypatch.undo()
     buf, anc_b = fused.pack_state(sim, targets)
     with pytest.raises(ValueError, match="CUDA"):      # the launch itself refuses
@@ -180,9 +180,9 @@ def _refused(scene, what):
         b = scene.obj_boxes
         wide = type(b)(*[torch.cat([x] * 2, dim=1) for x in b])
         return scene._replace(obj_boxes=wide), fused.check_scene, NotImplementedError
-    if what == "object_gravity":
+    if what == "object_gravity":     # ported: the bias build, no refusal
         o = scene.obj_tree._replace(gravity_scale=torch.ones_like(scene.obj_tree.gravity_scale))
-        return scene._replace(obj_tree=o), fused.pack_obj_table, NotImplementedError
+        return scene._replace(obj_tree=o), fused.pack_obj_table, None
     b = scene.obj_boxes._replace(geom_mask=scene.obj_boxes.geom_mask * 0.5)
     return scene._replace(obj_boxes=b), fused.pack_obj_table, NotImplementedError
 
@@ -190,6 +190,19 @@ def _refused(scene, what):
 @pytest.mark.parametrize("what", ["free_body_and_object", "more_than_32_boxes",
                                   "object_gravity", "fractional_box_mask"])
 def test_scenes_kernel_b1b_cannot_run_raise(denv, what):
+    """Each scene B1b cannot run raises.  An object under gravity was one of
+    them; it now runs the bias build (``FIS_BIAS=1``), whose ObjSpec record
+    ends with the object's gravity_scale."""
     scene, fn, err = _refused(denv.scene, what)
+    if err is None:
+        assert fused.needs_bias(scene) and not fused.needs_bias(denv.scene)
+        (table,), obj_id = fn(scene, bias=True)
+        offsets, words = _struct_offsets("ObjSpec", _dims(denv), {"FIS_BODY": 1, "FIS_BIAS": 1})
+        assert table.shape[1] == words and offsets["gscale"] == (words - 1, 1)
+        np.testing.assert_array_equal(table[:, -1], 1.0)
+        (plain,), plain_id = fn(denv.scene)
+        np.testing.assert_array_equal(table[:, :-1], plain)
+        np.testing.assert_array_equal(obj_id, plain_id)
+        return
     with pytest.raises(err):
         fn(scene)

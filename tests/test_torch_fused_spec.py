@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cu
+
 from partmanip_tpu_torch.config import process_cfgs
 from partmanip_tpu_torch.envs.grasp_cube import GraspCubeEnv
 from partmanip_tpu_torch.sim import contact as tcontact
@@ -26,8 +28,7 @@ def tenv():
 
 
 def _cu_source():
-    with open(fused.KERNEL_SOURCE) as f:
-        return f.read()
+    return _torch_cu.read(fused.KERNEL_SOURCE)
 
 
 def test_packed_spec_matches_the_kernel_struct(tenv):
@@ -90,11 +91,25 @@ def test_build_command_targets_hopper(monkeypatch):
 
 
 def test_pack_spec_refuses_a_robot_under_gravity(tenv):
-    """The kernel leaves the arm's gravity term out (the Franka spec disables
-    it); a spec that needs it must not be packed silently."""
+    """A robot under gravity used to be refused; it now takes the bias build
+    (``FIS_BIAS=1``): the scene asks for it, its library is keyed on it, and
+    the packed Spec is that build's struct, with the robot's gravity_scale
+    and the coriolis flag in its last fields."""
     robot = tenv.scene.robot._replace(gravity_scale=torch.ones(1))
-    with pytest.raises(NotImplementedError, match="gravity_scale"):
-        fused.pack_spec(tenv.scene._replace(robot=robot))
+    scene = tenv.scene._replace(robot=robot)
+    assert not fused.needs_bias(tenv.scene) and fused.needs_bias(scene)
+    lib = fused.scene_library(scene)
+    assert ("FIS_BIAS", 1) in lib.defines and lib.path.endswith("_bias.so")
+    L, D, S = fused._dims(scene)
+    body = re.search(r"struct Spec \{(.*?)\n\};",
+                     _torch_cu.read(fused.KERNEL_SOURCE, {"FIS_BODY": 1, "FIS_BIAS": 1}),
+                     re.S).group(1)
+    names = re.findall(r"^\s*(?:int|float)\s+(\w+)", body, re.M)
+    assert names[-2:] == ["gscale", "coriolis"]
+    spec = fused.pack_spec(scene, bias=True)
+    assert spec.size == fused.struct_words((L, D, S), bias=True)["spec"]
+    np.testing.assert_array_equal(spec[-2:], [1.0, 0.0])
+    np.testing.assert_array_equal(spec[:-2], fused.pack_spec(tenv.scene))
 
 
 @pytest.mark.parametrize("what", ["robot topology", "free body"])

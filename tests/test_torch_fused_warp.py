@@ -39,6 +39,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cu
+
 from partmanip_tpu_torch.ops import linalg
 from partmanip_tpu_torch.ops import rotations as rot
 from partmanip_tpu_torch.ops import sdf as sdf_ops
@@ -52,8 +54,7 @@ BLOCK_RESERVED = 1024                         # the runtime's share of it per bl
 
 
 def _source(name="fused_inner_step_obj.cu"):
-    with open(os.path.join(os.path.dirname(fused.KERNEL_SOURCE_OBJ), name)) as f:
-        return f.read()
+    return _torch_cu.read(os.path.join(os.path.dirname(fused.KERNEL_SOURCE_OBJ), name))
 
 
 def _assert_lines_in_order(src, lines):

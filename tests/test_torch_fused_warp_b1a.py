@@ -40,6 +40,8 @@ import re
 import numpy as np
 import torch
 
+import _torch_cu
+
 from partmanip_tpu_torch.ops import linalg
 from partmanip_tpu_torch.ops import rotations as rot
 from partmanip_tpu_torch.sim import contact, fused
@@ -52,8 +54,7 @@ BLOCK_RESERVED = 1024                         # the runtime's share of it per bl
 
 
 def _source(name="fused_inner_step.cu"):
-    with open(os.path.join(os.path.dirname(fused.KERNEL_SOURCE), name)) as f:
-        return f.read()
+    return _torch_cu.read(os.path.join(os.path.dirname(fused.KERNEL_SOURCE), name))
 
 
 def _constants(src, dims):

@@ -12,13 +12,18 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 IMPORT_ALL = r"""
-import importlib, pkgutil, sys
+import glob, importlib, importlib.util, os, pkgutil, sys
 import partmanip_tpu_torch
-names = ["partmanip_tpu_torch", "train_torch", "chip_smoke", "collect_demos_torch"] + [
+names = ["partmanip_tpu_torch", "train_torch", "chip_smoke", "collect_demos_torch",
+         "tune_pid_torch", "data_proc_torch"] + [
     m.name for m in pkgutil.walk_packages(partmanip_tpu_torch.__path__,
                                           "partmanip_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for path in sorted(glob.glob(os.path.join("scripts", "*_torch_*.py"))):
+    spec = importlib.util.spec_from_file_location(os.path.basename(path)[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append(path)
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "partmanip_tpu"))
@@ -75,15 +80,15 @@ print("LIBS", len(cuda_lib._LIBS))
 
 
 def test_every_kernel_registers_its_count_and_builds_nothing_at_import():
-    """B1a, B1b, B1c, B2 and B3 count their launches through the shared
+    """B1a, B1b, B1c, B1d, B2 and B3 count their launches through the shared
     helper; importing the port (without nvcc on the PATH) loads no kernel."""
     env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME="/nonexistent")
     out = subprocess.run([sys.executable, "-c", KERNEL_REGISTRY], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     lines = dict(ln.split(" ", 1) for ln in out.stdout.strip().splitlines())
-    assert lines["COUNTS"] == str([("b1a", 0), ("b1b", 0), ("b1c", 0), ("b2", 0),
-                                   ("b3", 0)])
+    assert lines["COUNTS"] == str([("b1a", 0), ("b1b", 0), ("b1c", 0), ("b1d", 0),
+                                   ("b2", 0), ("b3", 0)])
     assert lines["LIBS"] == "0"
 
 
@@ -91,7 +96,10 @@ def test_port_sources_never_name_jax_imports():
     import re
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|partmanip_tpu)\b", re.M)
     files = [os.path.join(ROOT, n) for n in ("train_torch.py", "chip_smoke.py",
-                                             "collect_demos_torch.py")]
+                                             "collect_demos_torch.py", "tune_pid_torch.py",
+                                             "data_proc_torch.py")]
+    files += [os.path.join(ROOT, "scripts", n) for n in os.listdir(os.path.join(ROOT, "scripts"))
+              if "_torch_" in n and n.endswith(".py")]
     for d, _, names in os.walk(os.path.join(ROOT, "partmanip_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     for path in files:
@@ -119,6 +127,31 @@ def test_cli_defaults_to_the_gpu_and_raises_without_one():
     with pytest.raises(RuntimeError, match="CUDA"):
         train_torch.main(["--test_only", "--algo.num_envs", "2",
                           "--exp_name", "no_gpu_seed1", "--log.mode", "screen"])
+
+
+def test_tool_entry_points_default_to_the_gpu_and_raise_without_one(tmp_path):
+    """tune_pid_torch.py, data_proc_torch.py armmask and the diag twins run
+    on the GPU unless asked for the CPU (``--device cpu``); without a GPU
+    they raise naming CUDA."""
+    import importlib.util
+    import numpy as np
+    import torch
+    import data_proc_torch
+    import tune_pid_torch
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device exists")
+    np.save(tmp_path / "0.npy", {"pos": np.zeros((1, 12, 3), np.float32)})
+    mains = [tune_pid_torch.main,
+             lambda argv: data_proc_torch.main(["armmask", str(tmp_path)] + argv)]
+    for name in ("diag_torch_cube", "diag_torch_drawer", "poke_torch_cube"):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "scripts", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mains.append(mod.main)
+    for main in mains:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main([])
 
 
 def test_chip_smoke_fails_without_a_gpu():
