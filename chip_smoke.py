@@ -22,7 +22,12 @@ recorded run; ``tsdf_student``, demos → BC → DAgger of the TSDF student;
 grasp_cube (B1a, B2 at 1 × 72×128; their teacher a PPO checkpoint written
 by the port in the phase) and of the sparse-voxel PointNet student on
 open_drawer (B1b, B2, B3 at N = 50³); the vision path's ``kernel_check``
-and ``timing`` also hold and time B2 and B3 at those shapes.  Prints one
+and ``timing`` also hold and time B2 and B3 at those shapes; ``tooling``,
+kernel B1d and the bias builds; ``b1e``, kernel B1e (the cabinet, with box
+or mesh handles, and grasp_cube's cube in one scene, stepped through
+``engine.physics_step``); ``multi_rank``, PPO and the expert's evaluation
+on ranks (``parallel/mesh.py``: one NCCL rank, then two gloo ranks sharing
+the card).  Prints one
 JSON object per phase (``device``, ``bake``, ``build``, then
 ``kernel_check``, ``small_reference``, ``main_path`` and ``timing`` for
 each path, ``train``, the vision path's ``step_breakdown`` and
@@ -628,13 +633,14 @@ def inner_step_flops(env, touching):
         robot += bias(L, D)
     spheres = (touching["ground"] + touching.get("cube", 0) + touching.get("boxes", 0)
                + touching.get("grids", 0)) / E
+    # the free cube: its narrowphase per sphere (once, as the function needs
+    # it), a partner more per touching sphere, the body integration
+    cube = 0 if scene.free_body is None else S * (2 * ROT + 40) + 8 * (ROT + 3) + 200
     if scene.obj_tree is None and scene.free_body is None:
         # B1d: the ground is the only partner, nothing beside the robot
         partners, rest = 1, 0
     elif scene.obj_tree is None:
-        # the free cube: its narrowphase per sphere, two partners per touching
-        # sphere, the body integration
-        partners, rest = 2, S * (2 * ROT + 40) + 8 * (ROT + 3) + 200
+        partners, rest = 2, cube
     else:
         Lo, Do = scene.obj_tree.num_links, scene.obj_tree.num_dofs
         o_anc = scene.obj_tree.ancestor.cpu().numpy().sum(-1)  # [E, Lo]
@@ -645,7 +651,8 @@ def inner_step_flops(env, touching):
         partners = 1
         rest = (fk_mass(Lo, Do, float(tri(o_anc).sum(-1).mean())) + tree(Do) + boxes
                 + g_act * S * (ROT + 3 + SDF) + touching["box_pairs"] / E * per_pair
-                + (bias(Lo, Do) if fused.needs_bias(scene) else 0))
+                + (bias(Lo, Do) if fused.needs_bias(scene) else 0) + cube)
+        partners += scene.free_body is not None
         if scene.obj_grids is not None:
             # mesh-SDF geoms: poses; per (sphere, live geom) the local point
             # and a lookup (inside its grid: index 6, cell and fractions 6,
@@ -734,7 +741,8 @@ def repeat_envs(scene, idx):
 
 # the kernel function of each physics variant, as the profiler names it
 KERNEL_FUNCTIONS = {"b1a": "fused_inner_step_kernel", "b1b": "fused_inner_step_obj_kernel",
-                    "b1c": "fused_inner_step_obj_kernel", "b1d": "fused_inner_step_kernel"}
+                    "b1c": "fused_inner_step_obj_kernel", "b1d": "fused_inner_step_kernel",
+                    "b1e": "fused_inner_step_obj_kernel"}
 
 
 @torch.no_grad()
@@ -749,7 +757,7 @@ def warp_kernel_timing(scene, buf, anc_b, n, repeats=10):
     from partmanip_tpu_torch.sim import fused
     E0 = buf.shape[1]
     blocks_per_sm = fused.occupancy(scene)
-    cfg = fused.launch_config(E0, fused._dims(scene), fused.variant(scene) != "b1d",
+    cfg = fused.launch_config(E0, fused._dims(scene), scene.free_body is not None,
                               fused.needs_bias(scene))
     device_ms, _ = _device_ms(lambda: fused.launch_packed(scene, buf, anc_b, n),
                               [KERNEL_FUNCTIONS[fused.variant(scene)]])
@@ -1061,7 +1069,8 @@ def vision_main_path():
     n_obs = 1 + rounds * (1 + T)                    # init_state's reset, then each round
     c2f = rig.coarse_to_fine and rig.im_h % 4 == 0 and rig.im_w % 4 == 0
     expected = {"b2": n_obs * (2 if c2f else 1), "b3": n_obs,
-                "b1b": 1 + rounds * (1 + T * env.control_freq_inv), "b1a": 0, "b1c": 0, "b1d": 0}
+                "b1b": 1 + rounds * (1 + T * env.control_freq_inv), "b1a": 0, "b1c": 0, "b1d": 0,
+                "b1e": 0}
     log = runner.last_log
     obs = runner.last_obs
     pts = obs.reshape(env.num_envs, K_POINTS, 3)
@@ -1407,7 +1416,7 @@ def vision_dagger_train(reps=3):
     c2f = rig.coarse_to_fine and rig.im_h % 4 == 0 and rig.im_w % 4 == 0
     expected = {"b2": n_obs * (2 if c2f else 1), "b3": n_obs,
                 "b1b": 1 + K * runner.n_steps * cfi + n_eval * (2 + T * cfi),
-                "b1a": 0, "b1c": 0, "b1d": 0}
+                "b1a": 0, "b1c": 0, "b1d": 0, "b1e": 0}
     logs = runner.train_logs
     bad = sorted({k for log in logs for k, v in log.items()
                   if k.startswith("Train/") and not np.isfinite(v)})
@@ -1431,7 +1440,7 @@ def vision_dagger_train(reps=3):
     torch.cuda.synchronize()
     resume_launches = cuda_lib.launch_counts()
     resume_expected = {"b2": 2 * (2 if c2f else 1), "b3": 2, "b1b": 1 + runner.n_steps * cfi,
-                       "b1a": 0, "b1c": 0, "b1d": 0}
+                       "b1a": 0, "b1c": 0, "b1d": 0, "b1e": 0}
     resumed_iter, resumed_count = resumed.curr_iter, resumed.last_ts.opt.count
     rts = resumed.resume(resumed.last_ts, path)
     saved, again = runner.last_ts.opt.state_dict(), rts.opt.state_dict()
@@ -1511,7 +1520,7 @@ def dagger_loop():
     launches = cuda_lib.launch_counts()
     env = runner.env
     expected = {"b1b": 1 + LOOP_ITERATIONS * runner.n_steps * env.control_freq_inv,
-                "b1a": 0, "b1c": 0, "b1d": 0, "b2": 0, "b3": 0}
+                "b1a": 0, "b1c": 0, "b1d": 0, "b1e": 0, "b2": 0, "b3": 0}
     loss = [log["Train/dagger_loss"] for log in runner.train_logs]
     want = [record["dagger_loss"][str(i)] for i in range(1, LOOP_ITERATIONS + 1)]
     tail, want_tail = float(np.mean(loss[40:50])), float(np.mean(want[40:50]))
@@ -1864,8 +1873,8 @@ def _dagger_run(task, mode, iterations, extra, launches_total, teacher=DRAWER_CK
     renders = mode != "mesh_tsdf"
     passes = 2 if rig.coarse_to_fine and rig.im_h % 4 == 0 and rig.im_w % 4 == 0 else 1
     samples = mode in ("depth_pc", "depth_sparse")
-    expected = {"b1a": 0, "b1b": 0, "b1c": 0, "b1d": 0, "b2": n_obs * passes if renders else 0,
-                "b3": n_obs if samples else 0}
+    expected = {"b1a": 0, "b1b": 0, "b1c": 0, "b1d": 0, "b1e": 0,
+                "b2": n_obs * passes if renders else 0, "b3": n_obs if samples else 0}
     expected[physics] = 1 + K * runner.n_steps * cfi + 2 + T * cfi
     obs_formula = f"1 + K·n_steps + (1 + T + 1) = 1 + {K}·{runner.n_steps} + (1 + {T} + 1)"
     formula = {physics: f"1 + K·n_steps·cfi + (2 + T·cfi) = 1 + {K}·{runner.n_steps}·{cfi} "
@@ -1931,7 +1940,8 @@ def tsdf_student():
         T = DEMO_T
         demos = {"rows": rows, "scenes": scenes, "seconds": summary["seconds"], "gb_written": gb,
                  "kernel_launches": collect_launches,
-                 "expected_launches": {"b1b": 1 + 2 * T, "b1a": 0, "b1c": 0, "b1d": 0, "b2": 0, "b3": 0},
+                 "expected_launches": {"b1b": 1 + 2 * T, "b1a": 0, "b1c": 0, "b1d": 0, "b1e": 0,
+                                       "b2": 0, "b3": 0},
                  "layout": {"tsdf": [DEMO_RES] * 3, "action": 10, "tea_obs": 53,
                             "proprio_state": 0, "tsdf_bf16_rounded": True},
                  "constant_predictor_loss": const_loss}
@@ -2322,7 +2332,7 @@ def cube_teacher(launches_total):
         launches_total[k] = launches_total.get(k, 0) + v
     path = os.path.join(runner.save_ckpt_dir, f"model_{K}.ckpt")
     expected = {"b1a": 1 + K * runner.n_steps * runner.env.control_freq_inv,
-                "b1b": 0, "b1c": 0, "b1d": 0, "b2": 0, "b3": 0}
+                "b1b": 0, "b1c": 0, "b1d": 0, "b1e": 0, "b2": 0, "b3": 0}
     bad = [k for k, v in runner.last_log.items() if k.startswith("Train/") and not np.isfinite(v)]
     emit("vision_modes_teacher", iterations=runner.curr_iter, num_envs=runner.env.num_envs,
          kernel_launches=launches, expected_launches=expected, wall_seconds=time.time() - t0,
@@ -2929,6 +2939,333 @@ def tooling(envs):
     return b1d, bias
 
 
+# ----------------------------------------------------------------------
+# kernel B1e: open_drawer's cabinet with grasp_cube's free cube beside it
+# ----------------------------------------------------------------------
+
+B1E_PATH = Path(kernel="b1e",
+                source="partmanip_tpu_torch/csrc/fused_inner_step_obj.cu",
+                replaces="partmanip_tpu/sim/fused.py:793",
+                replaces_function="partmanip_tpu/sim/fused.py:_inner_step_tiled "
+                                  "(has_body and has_obj, flags :1234-1235; the cube's "
+                                  "branches :793, :934-952, :998-1016, :1066)",
+                flags=[], main_flags=[], part="obj", rollout=None, rollout_steps=0,
+                policy=None, draws=None, chain_physics_steps=1, chain_tol=0.0,
+                min_success=None)
+B1E_STEPS = 20                # control steps of B1e's main path
+B1E_BIAS_CASES = ("coriolis", "robot_gravity", "object_gravity")
+
+
+def body_drawer_env(drawer_env, cube_env):
+    """open_drawer's env at full width with grasp_cube's cube added to its
+    scene (no entry point of either package builds this scene), as the
+    object the kernel checks and timings take for an env."""
+    import types
+    return types.SimpleNamespace(
+        scene=drawer_env.scene._replace(free_body=cube_env.scene.free_body),
+        spheres=drawer_env.spheres, built=drawer_env.built, num_envs=drawer_env.num_envs,
+        device=drawer_env.device, control_freq_inv=drawer_env.control_freq_inv)
+
+
+@torch.no_grad()
+def b1e_contact_case(benv, drawer_env, seed=6):
+    """``contact_states.body_drawer_contact_states`` (the cube on the hand or
+    against a finger pad on the ground, the pads on the handle), two plain
+    inner steps in: anchors exist on the cube and on the handle."""
+    from partmanip_tpu_torch.sim import engine
+    from partmanip_tpu_torch.utils import contact_states, convert
+    st, tg = contact_states.body_drawer_contact_states(
+        drawer_env, benv.scene.free_body, benv.num_envs, seed)
+    sim = convert.scene_state_from_numpy(st, benv.device)
+    targets = torch.as_tensor(tg, device=benv.device)
+    return engine.plain_physics_step(benv.scene, sim, targets, n_steps=2), targets
+
+
+@torch.no_grad()
+def b1e_main_path(benv, sim, targets):
+    """B1e's main path: ``engine.physics_step``, the entry point every env
+    steps through, B1E_STEPS times on the composed scene at full width from
+    the contact case with held targets; every step one B1e launch and none
+    of another kernel; finite state.  Returns (launches, final state,
+    seconds)."""
+    from partmanip_tpu_torch.sim import engine
+    from partmanip_tpu_torch.utils import cuda_lib
+    cuda_lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(B1E_STEPS):
+        sim = engine.physics_step(benv.scene, sim, targets)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = cuda_lib.launch_counts()
+    others = sum(n for k, n in launches.items() if k != "b1e")
+    finite = all(bool(torch.isfinite(x).all()) for x in _fields(sim).values())
+    if launches["b1e"] != B1E_STEPS or others != 0 or not finite:
+        raise RuntimeError(f"b1e main path: {launches['b1e']} launches (others {others}), "
+                           f"expected {B1E_STEPS}; finite state: {finite}")
+    return launches["b1e"], sim, wall
+
+
+@torch.no_grad()
+def b1e_census_and_control(benv, drawer_scene, sim, targets):
+    """The partners the spheres choose in one plain inner step of the
+    contact case (anchor ids: the cube 1, the boxes 2 + g, the grids
+    2 + G + k, the ground 0), and the control: B1b's (or B1c's) default
+    build on the same state with the cube left out, against the plain
+    version with the cube, must miss by more than TOL on some field."""
+    from partmanip_tpu_torch.sim import engine, fused
+    ref = engine.plain_physics_step(benv.scene, sim, targets, n_steps=1)
+    ids = ref.anchors.body
+    koff = 2 + benv.scene.obj_boxes.link_idx.shape[-1]
+    census = {"ground": int((ids == 0).sum()), "cube": int((ids == 1).sum()),
+              "boxes": int(((ids >= 2) & (ids < koff)).sum()), "grids": int((ids >= koff).sum())}
+    out = fused.fused_inner_steps(drawer_scene, sim._replace(body=None), targets, 1)
+    errs, _, _ = _field_errors(out, ref._replace(body=None))
+    control = {"library": fused.scene_library(drawer_scene).name, "max_abs_err": errs,
+               "misses_tol": sorted(f for f, e in errs.items() if e > TOL[f])}
+    return census, control
+
+
+def b1e(envs):
+    """Phase ``b1e``: kernel B1e's four builds (box handles and mesh
+    handles, each default and bias) compiled side by side; per handle kind
+    the contact case, the main path (B1E_STEPS physics steps through
+    ``engine.physics_step``, its launches counted), ``kernel_check`` on the
+    contact case and on the main path's end state (one inner step within
+    TOL, n in one launch equal to n launches), the partner census (the
+    cube and the handle both chosen), the B1b / B1c control that must miss,
+    the bias builds against the plain version with the default build as
+    their control, and the timing.  Returns B1e's entry of the ``kernels``
+    line (box handles; mesh handles under ``mesh_handles``)."""
+    from partmanip_tpu_torch.sim import fused
+    t_phase = time.time()
+    cube_env = envs[0][0]
+    benvs = {"boxes": body_drawer_env(envs[1][0], cube_env),
+             "grids": body_drawer_env(envs[2][0], cube_env)}
+    scenes = [sc for b in benvs.values()
+              for sc in [b.scene] + [bias_scenes(b.scene)[n] for n in B1E_BIAS_CASES]]
+    libs = list({fused.scene_library(s).path: fused.scene_library(s) for s in scenes}.values())
+    t0 = time.time()
+    reports = [lib.finish(p) for lib, p in zip(libs, [lib.start() for lib in libs])]
+    for lib in libs:
+        lib.load()
+    from partmanip_tpu_torch.utils import cuda_lib
+    ptxas = {os.path.basename(lib.path): cuda_lib.ptxas_lines(r) for lib, r in zip(libs, reports)}
+    emit("b1e_build", seconds=time.time() - t0, libraries=sorted(ptxas), ptxas=ptxas)
+    entries, failures = {}, []
+    for kind, (drawer_env, _) in zip(("boxes", "grids"), envs[1:3]):
+        benv = benvs[kind]
+        contact = b1e_contact_case(benv, drawer_env)
+        launches, driven, wall = b1e_main_path(benv, *contact)
+        cases = {"contact": contact, f"driven{B1E_STEPS}": (driven, contact[1])}
+        worst = phase_kernel_check(B1E_PATH, benv, cases, build=kind, rounding=False)
+        census, control = b1e_census_and_control(benv, drawer_env.scene, *contact)
+        scs = bias_scenes(benv.scene)
+        bias = {name: phase_kernel_check(B1E_PATH, benv, bias_cases(name, cases),
+                                         scene=scs[name], build=f"{kind}_{name}",
+                                         rounding=False, control=benv.scene)
+                for name in B1E_BIAS_CASES}
+        timing = phase_timing(B1E_PATH, benv, driven, contact[1], contact)
+        emit("b1e_" + kind, main_path_launches=launches, main_path_wall_seconds=wall,
+             census=census, control=control, max_abs_err=worst, max_abs_err_bias=bias,
+             timing=timing)
+        if census["cube"] == 0 or census[kind] == 0:
+            failures.append(f"{kind}: a partner kind is never chosen: {census}")
+        if not control["misses_tol"]:
+            failures.append(f"{kind}: the {control['library']} control is within TOL: "
+                            f"{control['max_abs_err']}")
+        lib = fused.scene_library(benv.scene)
+        bias_lib = fused.scene_library(scs["coriolis"])
+        entries[kind] = {"launches": launches, "max_abs_err": worst,
+                         "ptxas": ptxas[os.path.basename(lib.path)],
+                         "main_path_wall_seconds": wall, "census": census, "control": control,
+                         **timing,
+                         "bias_build": {"max_abs_err": bias,
+                                        "ptxas": ptxas[os.path.basename(bias_lib.path)]}}
+    emit("b1e", seconds=time.time() - t_phase, failures=failures)
+    if failures:
+        raise RuntimeError("b1e failed: " + "; ".join(failures))
+    return {"name": "fused_inner_step_b1e", "route": "cuda", "source": B1E_PATH.source,
+            "replaces": B1E_PATH.replaces, "replaces_function": B1E_PATH.replaces_function,
+            **entries["boxes"], "mesh_handles": entries["grids"]}
+
+
+# ----------------------------------------------------------------------
+# env-axis data parallelism over ranks (parallel/mesh.py)
+# ----------------------------------------------------------------------
+
+MULTI_ENVS = 4096             # the two gloo ranks' envs, 2048 a rank
+MULTI_FLAGS = ["--taskcfg", "open_drawer", "--algocfg", "ppo", "--task.asset.mesh_handle",
+               "--task.asset.assetRoot", MESH_ASSETS, "--algo.num_envs", str(MULTI_ENVS),
+               "--log.mode", "screen"]
+# the PPO iteration compared across rank counts: n_steps cut to 2, the
+# network in f32 (_rank_job; bf16 rounding would drown the comparison)
+MULTI_PPO = MULTI_FLAGS + ["--algo.n_steps", "2", "--algo.max_iterations", "1",
+                           "--exp_name", "chip_smoke_multi_seed7"]
+MULTI_EVAL = MULTI_FLAGS + ["--algo.tricks.use_state_norm", "--test_only",
+                            "--resume", DRAWER_CKPT, "--exp_name", "chip_smoke_multi_seed389"]
+PARAM_TOL = 2e-6              # the fixed-rollout update, 2 ranks vs 1 (tests/test_torch_ppo_train.py)
+METRIC_RTOL, METRIC_ATOL = 1e-3, 1e-4   # Train/*, 2 ranks vs 1 (the JAX tests/test_parallel.py)
+
+
+def _fixed_rollout(T, E, O, A, seed=5):
+    """A fixed rollout (numpy, time-major [T, E, ...]) near the initial
+    policy's outputs, and the observations after it ([E, O], what the last
+    values are computed from)."""
+    rs = np.random.RandomState(seed)
+    f = lambda *s: rs.normal(size=s).astype(np.float32)
+    r = {"observations": f(T, E, O), "actions": np.tanh(f(T, E, A)) * 0.9,
+         "rewards": f(T, E) * 0.5, "dones": rs.rand(T, E) < 0.2,
+         "succs": rs.rand(T, E) < 0.1, "values": f(T, E) * 0.3,
+         "log_probs": f(T, E) * 0.1 - 2.0, "mu": f(T, E, A) * 0.05,
+         "sigma": np.full((T, E, A), np.log(0.5), np.float32)}
+    r["succs"] &= r["dones"]
+    return r, f(E, O)
+
+
+@torch.no_grad()
+def _rank_state(sim):
+    return {k: v.cpu().numpy().copy() for k, v in _fields(sim).items()} | {
+        "anchor_body": sim.anchors.body.cpu().numpy().copy()}
+
+
+def _rank_job(evaluate):
+    """What each rank of ``multi_rank`` runs, in its mesh: (1) one update of
+    the PPO trainer (2 epochs of 4 minibatches drawn at random, so that
+    each holds rows of both ranks) on a fixed rollout and fixed
+    observations after it, this rank's env columns of them; (2) the first control step from the reset
+    with the policy's noise, free-running; (3) one PPO iteration
+    (``runner.run``) of MULTI_PPO; (4) with ``evaluate``, the committed
+    expert's evaluation through ``train_torch.main``.  Returns the
+    parameters after (1), the state after (2), (3)'s and (4)'s logs,
+    seconds and launch counts."""
+    import train_torch
+    from partmanip_tpu_torch.algos import ppo as ppo_mod
+    from partmanip_tpu_torch.models.actor_critic import ActorCritic
+    from partmanip_tpu_torch.parallel import mesh as mesh_lib
+    from partmanip_tpu_torch.utils import cuda_lib
+    mesh = mesh_lib.active_mesh()
+    ranks = ["--parallel.num_devices", str(mesh.size)]
+    runner, cfg = train_torch.build(MULTI_PPO + ranks)
+    runner.model_cfg["network"]["dtype"] = "f32"
+    runner.ac = ActorCritic(runner.num_obs, runner.num_actions, runner.model_cfg).to(runner.device)
+    env, E, El = runner.env, runner.num_envs, runner.env.num_envs
+    cols = slice(mesh.rank * El, (mesh.rank + 1) * El)
+    # (1) the fixed-rollout update
+    ro, last_obs = _fixed_rollout(runner.n_steps, E, runner.num_obs, runner.num_actions)
+    ts, env_state = runner.init_state(cfg["seed"])
+    dev = env.device
+    ts = ts._replace(curr_obs=torch.as_tensor(last_obs[cols], device=dev))
+    fixed = ppo_mod.storage.Rollout(**{k: torch.as_tensor(v[:, cols], device=dev)
+                                       for k, v in ro.items()})
+    infos = {"reward": fixed.rewards}
+    run_rollout = runner._rollout
+    runner._rollout = lambda ts_, es: (ts_, es, fixed, infos)
+    depth = runner.n_updates, runner.num_mini_batches, runner.sampler
+    runner.n_updates, runner.num_mini_batches, runner.sampler = 2, 4, "random"
+    ts, _, _ = runner._train_iteration(ts, env_state, float(runner.lr))
+    runner._rollout = run_rollout
+    runner.n_updates, runner.num_mini_batches, runner.sampler = depth
+    params = {k: v.detach().cpu().numpy().copy() for k, v in runner.ac.state_dict().items()}
+    # (2) the first control step
+    ts, env_state = runner.init_state(cfg["seed"])
+    with torch.no_grad():
+        actions, *_ = runner.ac.random_act_cri(ts.curr_obs, generator=ts.rng, mesh=mesh)
+        env_state, *_ = env.step(env_state, actions, train=True)
+    state = _rank_state(env_state.sim)
+    # (3) one PPO iteration
+    cuda_lib.reset_launch_counts()
+    runner.run(seed=cfg["seed"])
+    torch.cuda.synchronize()
+    out = {"params": params, "state": state, "ppo_log": runner.last_log,
+           "iteration_seconds": runner.iteration_seconds,
+           "ppo_launches": cuda_lib.launch_counts(),
+           "ppo_expected": 1 + runner.curr_iter * runner.n_steps * env.control_freq_inv}
+    # (4) the expert's evaluation
+    if evaluate:
+        cuda_lib.reset_launch_counts()
+        t0 = time.time()
+        ev = train_torch.main(MULTI_EVAL + ranks)
+        torch.cuda.synchronize()
+        out.update(eval_log=ev.last_log, eval_seconds=time.time() - t0,
+                   eval_launches=cuda_lib.launch_counts(),
+                   eval_expected=ev.eval_round * (1 + ev.env.max_episode_length
+                                                  * ev.env.control_freq_inv) + 1)
+    return out
+
+
+def multi_rank():
+    """Phase ``multi_rank``: env-axis data parallelism on the card.  One
+    NCCL rank (world size 1: the same code, every collective through NCCL)
+    on all MULTI_ENVS envs, then two gloo ranks sharing cuda:0 (NCCL
+    refuses two ranks on one device; gloo stages each collective through
+    the host), 2048 envs each, both on open_drawer with mesh handles
+    (kernel B1c).  Gates: the fixed-rollout update's parameters of the two
+    ranks equal each other's and within PARAM_TOL of the one rank's; the
+    first free-running control step's state within TOL of the one rank's
+    rows, anchor ids ≥ ANCHOR_ID_MATCH equal; the PPO iteration's Train/*
+    within METRIC_RTOL; each rank's B1c launches exactly its physics
+    steps, no other kernel launched; the expert's evaluation on the two
+    ranks ``Test/succ_rate_max`` ≥ 0.8."""
+    from partmanip_tpu_torch.parallel import mesh as mesh_lib
+    t_phase = time.time()
+    t0 = time.time()
+    (one,) = mesh_lib.launch(_rank_job, 1, "nccl", "cuda", args=(False,))
+    one_s = time.time() - t0
+    t0 = time.time()
+    two = mesh_lib.launch(_rank_job, 2, "gloo", "cuda:0", args=(True,))
+    two_s = time.time() - t0
+    failures = []
+    param_err = max(float(np.abs(two[0]["params"][k] - one["params"][k]).max())
+                    for k in one["params"])
+    ranks_equal = all(np.array_equal(two[0]["params"][k], two[1]["params"][k])
+                      for k in one["params"])
+    if not (param_err <= PARAM_TOL and ranks_equal):
+        failures.append(f"fixed-rollout update: 2 ranks vs 1 {param_err:.3g} > {PARAM_TOL} "
+                        f"or the ranks differ ({ranks_equal})")
+    state = {k: np.concatenate([r["state"][k] for r in two]) for k in one["state"]}
+    state_err = {k: float(np.abs(state[k] - one["state"][k]).max())
+                 for k in one["state"] if k != "anchor_body"}
+    same_ids = float((state["anchor_body"] == one["state"]["anchor_body"]).mean())
+    failures += [f"first control step: {k} {e:.3g} > {TOL[k]}" for k, e in state_err.items()
+                 if not e <= TOL[k]]
+    if same_ids < ANCHOR_ID_MATCH:
+        failures.append(f"first control step: anchor ids equal in {same_ids}")
+    metrics = {}
+    for k, v in one["ppo_log"].items():
+        if k.startswith("Train/"):
+            w = two[0]["ppo_log"][k]
+            metrics[k] = (w, v)
+            if not (np.isfinite(w) and abs(w - v) <= METRIC_ATOL + METRIC_RTOL * abs(v)):
+                failures.append(f"{k}: 2 ranks {w} vs 1 rank {v}")
+    for r, out in enumerate([one] + two):
+        for phase in ("ppo", "eval"):
+            if f"{phase}_launches" not in out:
+                continue
+            got, want = out[f"{phase}_launches"], out[f"{phase}_expected"]
+            others = sum(n for k, n in got.items() if k != "b1c")
+            if got["b1c"] != want or others:
+                failures.append(f"{phase} on {'1 rank' if r == 0 else f'rank {r - 1}'}: "
+                                f"{got['b1c']} B1c launches (others {others}), expected {want}")
+    succ = two[0]["eval_log"].get("Test/succ_rate_max", float("nan"))
+    if not succ >= 0.8:
+        failures.append(f"two-rank evaluation Test/succ_rate_max {succ} < 0.8")
+    emit("multi_rank", num_envs=MULTI_ENVS, envs_per_rank=MULTI_ENVS // 2,
+         seconds_one_rank_nccl=one_s, seconds_two_ranks_gloo=two_s,
+         fixed_update_param_err=param_err, param_tol=PARAM_TOL, ranks_equal=ranks_equal,
+         first_step_err=state_err, first_step_anchor_ids_equal=same_ids,
+         train_metrics_two_vs_one=metrics,
+         iteration_seconds={"one_rank_nccl": one["iteration_seconds"],
+                            "two_ranks_gloo": [r["iteration_seconds"] for r in two]},
+         launches={"one_rank_nccl": one["ppo_launches"]["b1c"],
+                   "two_ranks_gloo_ppo": [r["ppo_launches"]["b1c"] for r in two],
+                   "two_ranks_gloo_eval": [r["eval_launches"]["b1c"] for r in two]},
+         eval_seconds=[r["eval_seconds"] for r in two], succ_rate_max=succ,
+         eval_log=two[0]["eval_log"], seconds=time.time() - t_phase, failures=failures)
+    if failures:
+        raise RuntimeError("multi_rank failed: " + "; ".join(failures))
+
+
 def run_vision_path(phases, ptxas):
     """Every phase of the vision path; returns its two entries of the
     ``kernels`` line and the launches of DAgger training (or None)."""
@@ -2959,7 +3296,8 @@ def run_vision_path(phases, ptxas):
 
 
 PHASES = ("kernel_check", "small_reference", "main_path", "timing", "train",
-          "dagger_train", "dagger_loop", "tsdf_student", "vision_modes", "tooling")
+          "dagger_train", "dagger_loop", "tsdf_student", "vision_modes", "tooling", "b1e",
+          "multi_rank")
 ON_DEMAND = ("no_cudnn",)      # run only when --only names them
 
 
@@ -3021,6 +3359,9 @@ def main(argv=None):
     tsdf = tsdf_student() if "tsdf_student" in args.only else {}
     modes = vision_modes() if "vision_modes" in args.only else {}
     b1d, bias = tooling([(env, cfg) for env, cfg in envs]) if "tooling" in args.only else (None, {})
+    b1e_kernel = b1e(envs) if "b1e" in args.only else None
+    if "multi_rank" in args.only:
+        multi_rank()
     if "no_cudnn" in args.only:
         no_cudnn()
     next(k for k in kernels if k["name"] == "fused_inner_step_b1b").update(
@@ -3037,6 +3378,8 @@ def main(argv=None):
             k["bias_build"] = bias[name]
     if b1d is not None:
         kernels.append(b1d)
+    if b1e_kernel is not None:
+        kernels.append(b1e_kernel)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

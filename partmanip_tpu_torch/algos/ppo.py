@@ -21,6 +21,15 @@ names (``Train/*``, ``Test/succ_rate_max``, …):
 The rollout draws its exploration noise from a ``torch.Generator`` (the JAX
 package's PRNG keys do not carry over); the parity test feeds both
 trainers a fixed rollout and fixed minibatch indices.
+
+With ``parallel.num_devices`` N > 1 each of N ranks (``parallel/mesh.py``,
+started by ``train_torch.py``) holds an env of E/N envs and a replica of
+everything else; the rollout's draws, the RMS update, the advantage and
+minibatch normalisations, the KL estimate, the clipped-value ``delta``,
+every loss (a sum over the rank's rows of a global minibatch over the
+global minibatch size, its gradients summed over the ranks before the
+clip) and every metric are reduced over the ranks, so the iteration
+computes what one process computes for E envs.  Rank 0 logs and saves.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 
 from ..models.actor_critic import ActorCritic
+from ..parallel import mesh as mesh_lib
 from . import rms as rms_lib
 from . import storage
 from ..utils import checkpoint as ckpt_lib
@@ -202,12 +212,20 @@ class PPO:
         self.total_envsteps = 0
         self.iteration_seconds = []    # wall time of each train iteration
 
+        # env-axis data parallelism: the env holds this rank's envs
+        # (parallel/mesh.py); everything else is replicated
         par = cfg.get("parallel") or {}
         self.num_devices = int(par.get("num_devices") or 1)
-        if self.num_devices > 1:
-            raise NotImplementedError(
-                "parallel.num_devices > 1 is not ported yet (ROADMAP Queue A: "
-                "multi-GPU)")
+        self.mesh = getattr(env, "mesh", None)
+        ranks = 1 if self.mesh is None else self.mesh.size
+        if ranks != self.num_devices:
+            raise ValueError(
+                f"parallel.num_devices {self.num_devices}, but the env is sharded over "
+                f"{ranks} rank(s): train_torch.py starts the ranks (parallel/mesh.launch)")
+        if self.mesh is not None and env.num_envs * ranks != self.num_envs:
+            raise ValueError(f"the env holds {env.num_envs} envs, not num_envs "
+                             f"{self.num_envs} / {ranks} ranks")
+        self.is_main = self.mesh is None or self.mesh.rank == 0
 
     # ------------------------------------------------------------------
     # state init / io
@@ -235,7 +253,7 @@ class PPO:
         update = torch.tensor(bool(self.tricks["use_state_norm"]),
                               device=self.device)
         if self.tricks["use_state_norm"]:
-            curr_obs, rms_state = rms_lib.normalize(rms_state, curr_obs, update)
+            curr_obs, rms_state = rms_lib.normalize(rms_state, curr_obs, update, self.mesh)
         opt_actor, opt_critic = self._optimizers()
         ts = PPOTrainState(rms=rms_state, update_rms=update, curr_obs=curr_obs,
                            rng=rng, opt_actor=opt_actor, opt_critic=opt_critic)
@@ -317,12 +335,12 @@ class PPO:
         steps, infos = [], {}
         for _ in range(self.n_steps):
             actions, logp, values, mu, sigma = self.ac.random_act_cri(
-                obs, generator=ts.rng)
+                obs, generator=ts.rng, mesh=self.mesh)
             env_state, next_obs, rew, dones, extras = self.env.step(
                 env_state, actions, train=True)
             o = self._select_obs(next_obs)
             if self.tricks["use_state_norm"]:
-                o, rms_state = rms_lib.normalize(rms_state, o, ts.update_rms)
+                o, rms_state = rms_lib.normalize(rms_state, o, ts.update_rms, self.mesh)
             steps.append(storage.Rollout(
                 observations=obs, actions=actions, rewards=rew, dones=dones,
                 succs=env_state.reset_succ, values=values[..., 0],
@@ -336,7 +354,13 @@ class PPO:
         infos = {k: torch.stack(v) for k, v in infos.items()}
         return ts._replace(curr_obs=obs, rms=rms_state), env_state, ro, infos
 
-    def _actor_loss(self, obs, actions, old_logp, advantages):
+    def _rows_mean(self, x, n):
+        """The mean over a minibatch of ``n`` rows of which ``x`` holds this
+        rank's: ``x.mean()`` in one process, else this rank's part of it
+        (``x.sum() / n``, summed over the ranks with the gradients)."""
+        return x.mean() if self.mesh is None else x.sum() / n
+
+    def _actor_loss(self, obs, actions, old_logp, advantages, n=None):
         mean = self.ac.actor(obs)
         std = self.ac.std()
         raw = self.ac.deactivate(actions)
@@ -345,27 +369,48 @@ class PPO:
         surr = -advantages * ratio
         surr_clipped = -advantages * torch.clamp(
             ratio, 1.0 - self.epsilon_clip, 1.0 + self.epsilon_clip)
-        return torch.maximum(surr, surr_clipped).mean()
+        return self._rows_mean(torch.maximum(surr, surr_clipped), n)
 
-    def _critic_loss(self, obs, returns, old_values):
+    def _critic_loss(self, obs, returns, old_values, n=None):
         value = self.ac.critic(obs)[..., 0]
         if self.tricks["use_clipped_value_loss"]:
-            delta = torch.abs(self.epsilon_clip * old_values).mean()
+            delta = mesh_lib.mean(self.mesh, torch.abs(self.epsilon_clip * old_values), n)
             ret_c = old_values + torch.clamp(returns - old_values, -delta, delta)
-            return ((value - ret_c.detach()) ** 2).mean()
-        return ((returns - value) ** 2).mean()
+            return self._rows_mean((value - ret_c.detach()) ** 2, n)
+        return self._rows_mean((returns - value) ** 2, n)
 
     @torch.no_grad()
-    def _kl(self, obs, old_mu, old_sigma):
+    def _kl(self, obs, old_mu, old_sigma, n=None):
         """Reference-form KL estimate: stored sigma rows are log-std; the
-        estimate uses exp(sigma) as std."""
+        estimate uses exp(sigma) as std.  Its mean over the minibatch's
+        ``n`` rows of every rank."""
         mu = self.ac.actor(obs)
         sigma = self.ac.log_std.expand(mu.shape)
         kl = torch.sum(
             sigma - old_sigma
             + (torch.exp(old_sigma) ** 2 + (old_mu - mu) ** 2)
             / (2.0 * torch.exp(sigma) ** 2) - 0.5, dim=-1)
-        return kl.mean()
+        return mesh_lib.mean(self.mesh, kl, n)
+
+    def _mean(self, x):
+        """The mean of ``x``'s elements over every rank's (each holding as
+        many)."""
+        return mesh_lib.mean(self.mesh, x, x.numel() * (1 if self.mesh is None else self.mesh.size))
+
+    def _local_rows(self, epoch_idx):
+        """Each minibatch's rows (global flat indices t·E + e into the
+        rollout of all E envs) as this rank's flat indices t·E/N + e − lo,
+        for the envs e of this rank; in one process the minibatches as
+        they are."""
+        if self.mesh is None:
+            return list(epoch_idx)
+        E, El = self.num_envs, self.env.num_envs
+        lo = self.mesh.rank * El
+        g = epoch_idx.cpu()
+        t, e = g // E, g % E
+        mine = (e >= lo) & (e < lo + El)
+        loc = t * El + (e - lo)
+        return [loc[i][mine[i]].to(epoch_idx.device) for i in range(g.shape[0])]
 
     def _train_iteration(self, ts: PPOTrainState, env_state, lr):
         """Rollout, GAE, the KL-gated actor phase and the critic phase over
@@ -377,27 +422,32 @@ class PPO:
         returns, advantages = storage.compute_returns(
             ro, last_values, self.gamma, self.lam,
             None if self.succ_value is None else float(self.succ_value),
-            self.tricks["whole_adv_norm"])
+            self.tricks["whole_adv_norm"], self.mesh)
 
-        total = self.n_steps * self.num_envs
-        flat = lambda x: x.reshape((total,) + x.shape[2:])
+        mesh = self.mesh
+        total = self.n_steps * self.num_envs                 # every rank's rows
+        flat = lambda x: x.reshape((-1,) + x.shape[2:])
         obs_f, act_f, logp_f = flat(ro.observations), flat(ro.actions), flat(ro.log_probs)
         mu_f, sigma_f = flat(ro.mu), flat(ro.sigma)
         adv_f, ret_f, val_f = flat(advantages), flat(returns), flat(ro.values)
         epoch_idx = storage.minibatch_indices(
             ts.rng, total, self.num_mini_batches, self.sampler,
             n_epochs=self.n_updates, device=obs_f.device)
+        mb = epoch_idx.shape[1]
+        batches = self._local_rows(epoch_idx)
 
         # ---- actor phase (the lr schedule applies to the actor only) ----
         kls, losses, applied = [], [], []
-        for idx in epoch_idx:
+        for idx in batches:
             o, a, lp, ad = obs_f[idx], act_f[idx], logp_f[idx], adv_f[idx]
             if self.tricks["mini_adv_norm"]:
-                ad = (ad - ad.mean()) / (ad.std(correction=0) + 1e-8)
-            kl = self._kl(o, mu_f[idx], sigma_f[idx])
+                m = mesh_lib.mean(mesh, ad, mb)
+                ad = (ad - m) / (mesh_lib.std(mesh, ad, m, mb) + 1e-8)
+            kl = self._kl(o, mu_f[idx], sigma_f[idx], mb)
             self.ac.zero_grad(set_to_none=True)
-            loss = self._actor_loss(o, a, lp, ad)
+            loss = self._actor_loss(o, a, lp, ad, mb)
             loss.backward()
+            loss = mesh_lib.all_sum_grads(mesh, ts.opt_actor.params, loss)
             gate = bool(kl <= self.desired_kl)
             if gate:
                 ts.opt_actor.step(lr)
@@ -407,10 +457,11 @@ class PPO:
 
         # ---- critic phase ----
         v_losses = []
-        for idx in epoch_idx:
+        for idx in batches:
             self.ac.zero_grad(set_to_none=True)
-            loss = self._critic_loss(obs_f[idx], ret_f[idx], val_f[idx])
+            loss = self._critic_loss(obs_f[idx], ret_f[idx], val_f[idx], mb)
             loss.backward()
+            loss = mesh_lib.all_sum_grads(mesh, ts.opt_critic.params, loss)
             ts.opt_critic.step(self.lr)
             v_losses.append(loss.detach())
         self.ac.zero_grad(set_to_none=True)
@@ -420,8 +471,8 @@ class PPO:
         n_applied = torch.clamp(gate_f.sum(), min=1.0)
         noise = torch.exp(self.ac.log_std.detach())
         metrics = {
-            "Train/value_gt_return_mean": returns.mean(),
-            "Train/value_gt_return_max": returns.max(),
+            "Train/value_gt_return_mean": self._mean(returns),
+            "Train/value_gt_return_max": mesh_lib.all_max(mesh, returns.max()),
             "Train/value_function_loss": torch.stack(v_losses).mean(),
             "Train/surrogate_loss": torch.stack(losses).sum() / n_applied,
             # KL averaged over *applied* minibatches only
@@ -435,11 +486,13 @@ class PPO:
             "Train/mean_r_noise_std": noise[3:-1].mean(),
             "Train/mean_gripper_noise_std": noise[-1],
         }
-        # per-key mean and mean-of-per-env-max ([T, E]-stacked infos)
+        # per-key mean and mean-of-per-env-max ([T, E]-stacked infos; the
+        # env's replicated extras are every rank's already)
         for k, v in infos.items():
             v2 = v.reshape(self.n_steps, -1)
-            metrics[f"Train/{k}_mean"] = v2.mean()
-            metrics[f"Train/{k}_max"] = v2.max(dim=0).values.mean()
+            mean = (lambda x: x.mean()) if k in mesh_lib.REPLICATED_FIELDS else self._mean
+            metrics[f"Train/{k}_mean"] = mean(v2)
+            metrics[f"Train/{k}_max"] = mean(v2.max(dim=0).values)
         return ts, env_state, metrics
 
     # ------------------------------------------------------------------
@@ -458,7 +511,7 @@ class PPO:
 
         T = self.max_episode_length
         sums, maxes = {}, {}
-        rew_curve = []
+        rew_curve, replicated = [], set()
         for _ in range(T):
             actions, _ = self.ac.act_cri(o)
             env_state, next_obs, rew, dones, extras = self.env.step(
@@ -467,6 +520,7 @@ class PPO:
             if self.tricks["use_state_norm"]:
                 o, _ = rms_lib.normalize(ts.rms, o, False)
             infos = {k: v.float() for k, v in extras.items()}
+            replicated = {k for k in extras if k in mesh_lib.REPLICATED_FIELDS}
             infos["succ_rate"] = env_state.success.float()
             infos["reward"] = rew
             for k, v in infos.items():
@@ -474,12 +528,16 @@ class PPO:
                 # running sum / running per-env max over the episode
                 sums[k] = v if k not in sums else sums[k] + v
                 maxes[k] = v if k not in maxes else torch.maximum(maxes[k], v)
-            rew_curve.append(rew.mean())
+            rew_curve.append(rew.mean() if self.mesh is None else rew.sum())
         metrics = {}
         for k in sums:
-            metrics[f"{k}_mean"] = sums[k].mean() / T
-            metrics[f"{k}_max"] = maxes[k].mean()
-        return env_state, metrics, torch.stack(rew_curve)
+            mean = (lambda x: x.mean()) if k in replicated else self._mean
+            metrics[f"{k}_mean"] = mean(sums[k]) / T
+            metrics[f"{k}_max"] = mean(maxes[k])
+        curve = torch.stack(rew_curve)
+        if self.mesh is not None:
+            curve = mesh_lib.all_sum(self.mesh, curve) / self.num_envs
+        return env_state, metrics, curve
 
     @torch.no_grad()
     def _eval_capture(self, ts: PPOTrainState, env_state):
@@ -494,6 +552,9 @@ class PPO:
         (:func:`video_camera`, :func:`video_prims`)."""
         from ..ops import raymarch
         from ..utils import video as video_lib
+        if self.mesh is not None:
+            raise ValueError("evaluation capture (--save_pose / --save_video) dumps one "
+                             "process's envs: run it with parallel.num_devices 1")
         if self.save_pose and not self.save_video:
             return self._eval_capture_poses(ts, env_state)
         env_state, obs = self.env.reset(env_state)
@@ -571,7 +632,7 @@ class PPO:
             curves.append(rew_curve.cpu().numpy())
             for k, v in fetch_scalars(m).items():
                 agg.setdefault(k, []).append(v)
-        if self.cfg.get("save_teacher_reward"):
+        if self.cfg.get("save_teacher_reward") and self.is_main:
             os.makedirs(self.save_ckpt_dir, exist_ok=True)
             np.save(pjoin(self.save_ckpt_dir, "teacher_reward.npy"),
                     np.mean(curves, axis=0))
@@ -599,7 +660,8 @@ class PPO:
         ts = self.resume(ts, resume or self.cfg.get("resume"))
         if self.test_only:
             ts, env_state, log = self.eval(ts, env_state, mode="Test")
-            self.logger.info(log, self.curr_iter)
+            if self.is_main:
+                self.logger.info(log, self.curr_iter)
             self.last_log, self.last_env_state = log, env_state
             return ts
 
@@ -616,20 +678,22 @@ class PPO:
             log["Progress/iteration_time"] = elapsed
             log["Progress/FPS"] = int(self.n_steps * self.num_envs / max(elapsed, 1e-9))
             log["Train/learning_rate"] = float(lr)
-            self.logger.info(log, self.curr_iter)
+            if self.is_main:
+                self.logger.info(log, self.curr_iter)
             self.last_log = log
 
             if self.curr_iter % self.eval_freq == 0:
                 ts, env_state, eval_log = self.eval(ts, env_state)
-                self.logger.info(eval_log, self.curr_iter)
+                if self.is_main:
+                    self.logger.info(eval_log, self.curr_iter)
                 with torch.no_grad():
                     env_state, obs = self.env.reset(env_state)
                 o = self._select_obs(obs)
                 if self.tricks["use_state_norm"]:
-                    o, new_rms = rms_lib.normalize(ts.rms, o, ts.update_rms)
+                    o, new_rms = rms_lib.normalize(ts.rms, o, ts.update_rms, self.mesh)
                     ts = ts._replace(rms=new_rms)
                 ts = ts._replace(curr_obs=o)
-            if self.curr_iter % self.save_freq == 0:
+            if self.curr_iter % self.save_freq == 0 and self.is_main:
                 self.save(self.curr_iter, ts)
         self.last_env_state = env_state
         return ts

@@ -22,6 +22,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..parallel import mesh as mesh_lib
+
 
 class Rollout(NamedTuple):
     """Stacked trajectory tensors, time-major [T, E, ...]."""
@@ -39,8 +41,10 @@ class Rollout(NamedTuple):
 
 def compute_returns(r: Rollout, last_values: torch.Tensor, gamma: float,
                     lam: float, succ_value: Optional[float],
-                    whole_adv_norm: bool = False):
-    """GAE over the rollout, last step first.
+                    whole_adv_norm: bool = False, mesh=None):
+    """GAE over the rollout, last step first.  With a ``mesh``
+    (``parallel/mesh.py``) the whole-buffer normalisation takes the mean and
+    the spread of every rank's advantages.
 
     Returns (returns [T, E], advantages [T, E]).
     """
@@ -61,8 +65,9 @@ def compute_returns(r: Rollout, last_values: torch.Tensor, gamma: float,
     advantages = returns - r.values
     if whole_adv_norm:
         # population std (ddof 0), as jnp.std
-        advantages = ((advantages - advantages.mean())
-                      / (advantages.std(correction=0) + 1e-8))
+        n = advantages.numel() * (1 if mesh is None else mesh.size)
+        m = mesh_lib.mean(mesh, advantages, n)
+        advantages = (advantages - m) / (mesh_lib.std(mesh, advantages, m, n) + 1e-8)
     return returns, advantages
 
 

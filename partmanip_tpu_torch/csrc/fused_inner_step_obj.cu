@@ -108,6 +108,24 @@
 // hands coriolis and gravity to XLA.  The default build (FIS_BIAS=0) is the
 // code it was before the bias existed.
 //
+// Built with FIS_BODY=1 (variant B1e: open_drawer's cabinet, with boxes or,
+// with FIS_K > 0, mesh geoms, beside grasp_cube's free cube), the scene
+// also holds one free box, as kernel B1a has it: it replaces the same Pallas
+// kernel with has_body and has_obj both set (partmanip_tpu/sim/fused.py
+// :1234-1235; the cube's branches :793, :934-952, :998-1016, :1066).  Each
+// sphere also meets the cube (partner id 1, between the ground and the
+// object's geoms, first minimum); its anchor may live in the cube's frame;
+// the cube takes the spheres' normal reactions and their friction reactions
+// capped to velocity matching (each sphere's share kept by pass B in its row
+// of pass A's depths, which pass B has read, so that no register carries it
+// through pass B), its corners meet the ground, and it is integrated after
+// pass B by the lanes of its warp (B1a's box_step with the warp in place of
+// the half-warp).  The cube's fields follow the Spec's
+// others, its 13 state rows the object's; Work grows by those rows only
+// (the cube's depths are computed again in pass B rather than kept), so the
+// bias build still fits four blocks an SM.  The default build (FIS_BODY=0)
+// is the code it was before.
+//
 // Numerics follow the plain version literally (see fused_common.cuh); what
 // differs, outside the contact geometry, is fma contraction and the order
 // of sums.
@@ -143,6 +161,10 @@
 #ifndef FIS_WARPS
 #define FIS_WARPS 4
 #endif
+// 1: a free box beside the object (B1e); 0: the object alone (B1b / B1c)
+#ifndef FIS_BODY
+#define FIS_BODY 0
+#endif
 // 1: the solves subtract each tree's bias (gravity, coriolis)
 #ifndef FIS_BIAS
 #define FIS_BIAS 0
@@ -160,6 +182,9 @@
 
 static_assert(G <= 32, "the touching pairs of a sphere are kept as one 32-bit mask");
 static_assert(L <= 32 && LO <= 32 && S <= 32 && D <= 32, "one lane per link, sphere and dof");
+#if FIS_BODY
+static_assert(G >= 7, "a sphere's cube record (7 floats) lives in its row of the box depths");
+#endif
 #if FIS_K > 0
 #define K FIS_K
 #define GX FIS_GX
@@ -216,6 +241,17 @@ struct Spec {
     float friction_veps;
     float brake_beta;
     float sat_veps;
+#if FIS_BODY
+    float cube_mass;
+    float cube_inertia[9];
+    float cube_half[3];
+    float cube_gscale;
+    float cube_mu;
+    float cd_cube;            // 2 zeta sqrt(kn * m_cube)
+    float cd_corner;          // 2 zeta sqrt(kn * m_cube / 4)
+    float coef_cube;          // h cd_cube + h^2 kn
+    float hold_vel;
+#endif
 #if FIS_BIAS
     float gscale;             // the robot's gravity_scale
     float coriolis;           // 1: the velocity-product term too
@@ -337,7 +373,15 @@ enum {
     R_OV = R_OQ + DO,
     R_ORP = R_OV + DO,
     R_ORQ = R_ORP + 3,
+#if FIS_BODY
+    R_BPOS = R_ORQ + 4,
+    R_BQUAT = R_BPOS + 3,
+    R_BLIN = R_BQUAT + 4,
+    R_BANG = R_BLIN + 3,
+    R_ANCP = R_BANG + 3,
+#else
     R_ANCP = R_ORQ + 4,
+#endif
     R_TGT = R_ANCP + 3 * S,
     FIS_NF = R_TGT + D
 };
@@ -367,7 +411,7 @@ constexpr int SCRATCH = cmax(cmax(7 * (L + LO), 2 * D * D),
 // One env's working set in shared memory (a warp's).  4-byte members only;
 // tests/test_torch_fused_warp.py reads the layout out of this source.
 struct Work {
-    float st[R_ANCP];         // state rows R_QPOS .. R_ORQ + 3
+    float st[R_ANCP];         // state rows R_QPOS .. R_ORQ + 3 (B1e: .. R_BANG + 2)
     float tgt[D];
     float lp[L][3];           // robot link poses
     float lq[L][4];
@@ -721,6 +765,99 @@ __device__ __forceinline__ void obj_friction_reaction(const ObjSpec& os, const W
     for (int d = 0; d < DO; ++d) to[d] -= dot(jv[d], ft) + dot(jw[d], tf);
 }
 
+#if FIS_BODY
+// component a (0, 1, 2) of v, by selects (no indexing into local memory)
+__device__ __forceinline__ float comp(V3 v, int a) { return a == 0 ? v.x : (a == 1 ? v.y : v.z); }
+
+// The cube's depth below sphere s (negative: touching) and its outward
+// normal in the cube's frame (contact.spheres_vs_boxes), from the state at
+// the start of the inner step.
+__device__ __forceinline__ float cube_depth(const Spec& sp, const Work& w, int s, V3 c,
+                                            V3* n_local) {
+    return __fsub_rn(box_sdf_t(quat_rotate_inv_t(ld4(w.st + R_BQUAT), sub_r(c, ld3(w.st + R_BPOS))),
+                               ld3(sp.cube_half), n_local),
+                     sp.sph_radius[s]);
+}
+
+// The free box (engine._inner_step's corner contacts and delta-v cap, then
+// contact.integrate_free_body), B1a's box_step over the env's warp: lanes
+// over the 8 corners against the ground; the corners' force and torque and
+// this lane's part of the spheres' reaction (f, t) summed over the warp;
+// then a lane per axis integrates its velocities and position (its row of
+// the cofactor inverse) and a lane per component the quaternion, into the
+// state rows.
+__device__ __forceinline__ void body_step(const Spec& sp, Work& w, int lane, V3 f, V3 t) {
+    const float h = sp.h;
+    const V3 bpos = ld3(w.st + R_BPOS), blin = ld3(w.st + R_BLIN), bang = ld3(w.st + R_BANG);
+    const Q4 bquat = ld4(w.st + R_BQUAT);
+    const V3 half = ld3(sp.cube_half);
+    V3 cw = v3(0.0f, 0.0f, 0.0f);
+    if (lane < 8)
+        cw = add_r(bpos, quat_rotate_t(bquat, v3((lane & 4) ? half.x : -half.x,
+                                                 (lane & 2) ? half.y : -half.y,
+                                                 (lane & 1) ? half.z : -half.z)));
+    const bool on_ground = lane < 8 && cw.z < 0.0f;
+    const float n_act_c = fmaxf(1.0f, (float)warp_count(on_ground));
+    if (on_ground) {
+        const V3 rck = cw - bpos;
+        const V3 vck = blin + cross(bang, rck);
+        float fn_unused;
+        const V3 fc = penalty_force(cw.z, v3(0.0f, 0.0f, 1.0f), vck, 0.5f * (sp.cube_mu + sp.ground_mu),
+                                    sp.cube_mass / 4.0f, sp.cd_corner, n_act_c, 1.0f, h, sp.kn,
+                                    sp.kt, sp.max_depen, &fn_unused);
+        f = f + fc;
+        t = t + cross(rck, fc);
+    }
+    f = v3(warp_sum(f.x), warp_sum(f.y), warp_sum(f.z));
+    t = v3(warp_sum(t.x), warp_sum(t.y), warp_sum(t.z));
+    // the net delta-v cap of the body
+    const float dv = div_pos(norm(f) * h, sp.cube_mass);
+    const float dv_scale = fminf(1.0f, sp.max_depen / fmaxf(dv, 1e-9f));
+    f = f * dv_scale;
+    t = t * dv_scale;
+
+    // world inertia and its cofactors (every lane)
+    float R[9], Iw[9];
+    quat_to_mat(bquat, R);
+    rotate_inertia(R, sp.cube_inertia, Iw);
+    const float a = Iw[0], b = Iw[1], c = Iw[2], d = Iw[3], ee = Iw[4], ff = Iw[5],
+                g = Iw[6], hh = Iw[7], i = Iw[8];
+    const float co00 = ee * i - ff * hh, co01 = c * hh - b * i, co02 = b * ff - c * ee;
+    const float co10 = ff * g - d * i, co11 = a * i - c * g, co12 = c * d - a * ff;
+    const float co20 = d * hh - ee * g, co21 = b * g - a * hh, co22 = a * ee - b * d;
+    const float det = a * co00 + b * co10 + c * co20;
+    const V3 tg = t - cross(bang, matvec(Iw, bang));      // torque - gyro
+    // lane ax < 3: axis ax, with row ax of the inverse co / det
+    const int ax = lane < 3 ? lane : 0;
+    const float r0 = div_pos(ax == 0 ? co00 : (ax == 1 ? co10 : co20), det);
+    const float r1 = div_pos(ax == 0 ? co01 : (ax == 1 ? co11 : co21), det);
+    const float r2 = div_pos(ax == 0 ? co02 : (ax == 1 ? co12 : co22), det);
+    const float angacc = r0 * tg.x + r1 * tg.y + r2 * tg.z;
+    const float linacc = div_pos(comp(f, ax), sp.cube_mass)
+                       + (ax == 2 ? sp.gravity : 0.0f) * sp.cube_gscale;
+    const float lin = clampf(comp(blin, ax) + h * linacc, -20.0f, 20.0f);
+    const float ang = clampf(comp(bang, ax) + h * angacc, -50.0f, 50.0f);
+    const float pos = comp(bpos, ax) + h * lin;
+    // the new angular velocity on every lane; lane k < 4: quaternion component k
+    const V3 wn = v3(__shfl_sync(FIS_FULL_MASK, ang, 0), __shfl_sync(FIS_FULL_MASK, ang, 1),
+                     __shfl_sync(FIS_FULL_MASK, ang, 2));
+    const Q4 dq = {0.5f * h * wn.x, 0.5f * h * wn.y, 0.5f * h * wn.z, 0.0f};
+    const Q4 dqq = quat_mul(dq, bquat);
+    const Q4 qn = {bquat.x + dqq.x, bquat.y + dqq.y, bquat.z + dqq.z, bquat.w + dqq.w};
+    const float nrm = sqrtf(qn.x * qn.x + qn.y * qn.y + qn.z * qn.z + qn.w * qn.w) + 1e-9f;
+    const int k = lane < 4 ? lane : 0;
+    const float qk = div_pos(k == 0 ? qn.x : (k == 1 ? qn.y : (k == 2 ? qn.z : qn.w)), nrm);
+    __syncwarp();                             // every lane has read the old rows
+    if (lane < 3) {
+        w.st[R_BPOS + ax] = pos;
+        w.st[R_BLIN + ax] = lin;
+        w.st[R_BANG + ax] = ang;
+    }
+    if (lane < 4) w.st[R_BQUAT + k] = qk;
+    __syncwarp();
+}
+#endif
+
 __global__ void __launch_bounds__(FIS_THREADS, 16 / FIS_WARPS)
 fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict__ anc_b_in,
                             float* __restrict__ out, int* __restrict__ anc_b_out,
@@ -832,13 +969,23 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
         }
 #endif
         bool on_ground = false;
+#if FIS_BODY
+        bool on_cube = false;
+#endif
         if (lane < S) {
             const int li = sp.sph_link[lane];
             const V3 c = add_r(ld3(w.lp[li]), quat_rotate_t(ld4(w.lq[li]), ld3(sp.sph_off[lane])));
             st3(w.cen[lane], c);
             on_ground = (c.z - sp.sph_radius[lane]) < 0.0f;
+#if FIS_BODY
+            V3 n_unused;
+            on_cube = cube_depth(sp, w, lane, c, &n_unused) < 0.0f;
+#endif
         }
         const float n_act_g = fmaxf(1.0f, (float)warp_count(on_ground));
+#if FIS_BODY
+        const float n_act_b = fmaxf(1.0f, (float)warp_count(on_cube));
+#endif
         __syncwarp();
         PHASE(3)
 
@@ -909,6 +1056,10 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
             }
             const float r = sp.sph_radius[s];
             const float dg = c.z - r;
+#if FIS_BODY
+            V3 nb_local;
+            const float db = cube_depth(sp, w, s, c, &nb_local);
+#endif
             // the touching boxes and the best (first deepest) one, in box order
             unsigned tmask = 0u;
             float best_bd = 1e9f;
@@ -940,12 +1091,15 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
                 }
             }
 #endif
-            // partner choice in the order ground (0), boxes (2 + g), grids
-            // (2 + G + k): a later partner wins only with a strictly smaller
-            // depth
+            // partner choice in the order ground (0), cube (1, B1e), boxes
+            // (2 + g), grids (2 + G + k): a later partner wins only with a
+            // strictly smaller depth
             int id = -1;
             float bd = 1e9f;
             if (dg < 0.0f && dg < bd) { id = 0; bd = dg; }
+#if FIS_BODY
+            if (db < 0.0f && db < bd) { id = 1; bd = db; }
+#endif
             if (best_g >= 0 && best_bd < bd) { id = 2 + best_g; bd = best_bd; }
 #if FIS_K > 0
             if (best_k >= 0 && best_kd < bd) { id = KOFF + best_k; bd = best_kd; }
@@ -954,6 +1108,15 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
             float N[9];
 #pragma unroll
             for (int k = 0; k < 9; ++k) N[k] = 0.0f;
+#if FIS_BODY
+            // the sphere's cube record, in its row of pass A's depths (read
+            // above): [0, 3) the cube's normal force on the sphere, [3, 6)
+            // the friction force and [6] |v_t| when the cube is the
+            // selected partner (else -1)
+            float* rec = dsg + s * G;
+            st3(rec, v3(0.0f, 0.0f, 0.0f));
+            rec[6] = -1.0f;
+#endif
             if (id < 0) {          // touches nothing: no force, anchor released
                 anc_b = -1;
             } else {
@@ -966,6 +1129,33 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
                 }
                 V3 sel_n = v3(0.0f, 0.0f, 1.0f), sel_vo = v3(0.0f, 0.0f, 0.0f);
                 float sel_fn = 0.0f, sel_mu = 0.0f;
+#if FIS_BODY
+                // the cube: its penalty force (kept in the record) and its
+                // part of N
+                const V3 rc = c - ld3(w.st + R_BPOS);
+                const V3 v_box = ld3(w.st + R_BLIN) + cross(ld3(w.st + R_BANG), rc);
+                if (db < 0.0f) {
+                    const V3 nb = quat_rotate_t(ld4(w.st + R_BQUAT), nb_local);
+                    const float mu_b = 0.5f * (sp.sph_mu[s] + sp.cube_mu);
+                    float fn_b;
+                    const V3 fb = penalty_force(db, nb, v - v_box, mu_b, sp.cube_mass, sp.cd_cube,
+                                                n_act_b, 1.0f, sp.h, sp.kn, sp.kt, sp.max_depen,
+                                                &fn_b);
+                    F = F + fb;
+                    const float nn[3] = {nb.x, nb.y, nb.z};
+#pragma unroll
+                    for (int a = 0; a < 3; ++a)
+#pragma unroll
+                        for (int b = 0; b < 3; ++b) N[a * 3 + b] += sp.coef_cube * nn[a] * nn[b];
+                    st3(rec, fb);
+                    if (id == 1) {
+                        sel_n = nb;
+                        sel_fn = fn_b;
+                        sel_mu = mu_b;
+                        sel_vo = v_box;
+                    }
+                }
+#endif
                 // the touching boxes, in box order
                 for (unsigned m = tmask; m != 0u; m &= m - 1u) {
                     const int g = __ffs(m) - 1;
@@ -1020,7 +1210,11 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
 #endif
                 // the selected contact
                 const bool on_box = id >= 2 && !on_grid;
+#if FIS_BODY
+                const bool on_obj = id >= 1;          // a selection above: the cube or a geom
+#else
                 const bool on_obj = id >= 2;
+#endif
                 const int gs = on_box ? id - 2 : 0;
                 const V3 n = on_obj ? sel_n : v3(0.0f, 0.0f, 1.0f);
                 const float fn = on_obj ? sel_fn : fn_g;
@@ -1045,6 +1239,10 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
                         aw = add_r(quat_rotate_t(ld4(w.gq[ka]), anc_p), ld3(w.gp[ka]));
                     }
 #endif
+#if FIS_BODY
+                    if (anc_b == 1) aw = add_r(quat_rotate_t(ld4(w.st + R_BQUAT), anc_p),
+                                               ld3(w.st + R_BPOS));
+#endif
                     const V3 delta = c - aw;
                     const V3 delta_t = delta - dot(delta, n) * n;
                     const V3 ft_raw = same ? (-sp.anchor_ks) * delta_t - sp.anchor_cdt * vt
@@ -1060,6 +1258,10 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
                                    : new_w;
 #if FIS_K > 0
                     if (on_grid) anc_p = quat_rotate_inv_t(ld4(w.gq[ks]), sub_r(new_w, ld3(w.gp[ks])));
+#endif
+#if FIS_BODY
+                    if (id == 1) anc_p = quat_rotate_inv_t(ld4(w.st + R_BQUAT),
+                                                           sub_r(new_w, ld3(w.st + R_BPOS)));
 #endif
                     anc_b = id;
                     ft = ft * sticky;
@@ -1081,6 +1283,14 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
 #if FIS_K > 0
                 if (on_grid) obj_friction_reaction(os, w, gr.g_link[ks], ld3(w.gp[ks]), c, ft, to);
 #endif
+#if FIS_BODY
+                // the friction on the cube, capped below once the spheres
+                // that select it are counted
+                if (id == 1) {
+                    st3(rec + 3, ft);
+                    rec[6] = norm(vt);
+                }
+#endif
             }
             st3(w.F[s], F);
 #pragma unroll
@@ -1101,6 +1311,34 @@ fused_inner_step_obj_kernel(const float* __restrict__ in, const int* __restrict_
             for (int i = 0; i < TRIO; ++i) w.Ao[i] = ao[i];
         }
         __syncwarp();
+#if FIS_BODY
+        // ---- the cube: a lane per sphere its normal reaction (-f,
+        // -(rc x f)) and, where the cube is the selected partner, the
+        // friction reaction capped to velocity matching; then the corners
+        // and the integration
+        {
+            V3 fw = v3(0.0f, 0.0f, 0.0f), tw = v3(0.0f, 0.0f, 0.0f);
+            V3 rc = fw;
+            const float* rec = dsg + (lane < S ? lane : 0) * G;
+            const bool sel = lane < S && rec[6] >= 0.0f;
+            if (lane < S) {
+                rc = ld3(w.cen[lane]) - ld3(w.st + R_BPOS);
+                const V3 fb = ld3(rec);
+                fw = fw - fb;
+                tw = tw - cross(rc, fb);
+            }
+            const float n_touch_box = fmaxf(1.0f, (float)warp_count(sel));
+            if (sel) {
+                const V3 ft = ld3(rec + 3);
+                const float cap = (sp.cube_mass / n_touch_box) * (rec[6] + sp.hold_vel) / sp.h;
+                const float mag = norm(ft);
+                const V3 ftc = ft * div_pos(fminf(mag, cap), fmaxf(mag, 1e-9f));
+                fw = fw - ftc;
+                tw = tw - cross(rc, ftc);
+            }
+            body_step(sp, w, lane, fw, tw);
+        }
+#endif
         PHASE(5)
 
         // ---- robot joint space: N J, then tau = J^T F and Ac = J^T N J,

@@ -97,7 +97,12 @@ def mesh_sdf_cached(path: str, scale: np.ndarray, voxel_size: float = None,
         return np.load(cache, allow_pickle=True).item()
     grid = sdf_ops.bake_mesh_sdf(verts, faces, voxel_size=voxel_size,
                                  trunc=6.0 * voxel_size, device=device)
-    np.save(cache, grid)
+    # written under a name of this process's and moved into place whole:
+    # processes that bake the same mesh at once (the ranks of
+    # parallel/mesh.py) never read a half-written cache
+    tmp = f"{cache}.{os.getpid()}.tmp.npy"
+    np.save(tmp, grid)
+    os.replace(tmp, cache)
     return grid
 
 
@@ -372,11 +377,21 @@ def ensure_drawer_assets(asset_root: str, split: str, n: int,
     return the sorted asset dir list (≙ the reference's folder scan,
     ``open_drawer.py:35-36``).  ``mesh_handle`` emits handle bars as mesh
     collision geoms (baked-SDF contact path — the real-GAPartNet workload);
-    mesh and box variants live in separate split dirs so caches don't mix."""
+    mesh and box variants live in separate split dirs so caches don't mix.
+    Processes that ask at once (the ranks of ``parallel/mesh.py``) take
+    turns: an exclusive lock on the split folder's ``.lock`` file."""
+    import fcntl
     if mesh_handle:
         split = split + "_mesh"
     split_dir = pjoin(asset_root, "objs", "drawer", split)
     os.makedirs(split_dir, exist_ok=True)
+    with open(pjoin(split_dir, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _ensure_split(split_dir, split, n, mesh_handle)
+
+
+def _ensure_split(split_dir: str, split: str, n: int, mesh_handle: bool) -> List[str]:
+    """:func:`ensure_drawer_assets` once its lock is held."""
     ver_file = pjoin(split_dir, ".genver")
     try:
         with open(ver_file) as f:

@@ -27,6 +27,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from ..parallel import mesh as mesh_lib
 from ..sim import engine
 from ..sim.engine import SceneSpec, SceneState
 
@@ -103,8 +104,11 @@ def pre_physics(
     max_episode_length: int,
     train: bool,
     force_reset=None,
+    mesh=None,
 ) -> Tuple[EnvState, torch.Tensor, Dict[str, torch.Tensor]]:
-    """Reset decision + partial reset + target overlay.
+    """Reset decision + partial reset + target overlay.  With a ``mesh``
+    (``parallel/mesh.py``) the success rate at reset counts the envs of
+    every rank.
 
     Returns (new state, final PD targets, pre-physics extras).
     """
@@ -119,10 +123,15 @@ def pre_physics(
             # external reset requests
             reset_buf = reset_buf | force_reset
         reset_succ = state.success
-        extras["succ_rate"] = (
-            state.success.float().sum(dim=0, keepdim=True)
-            / torch.clamp(reset_buf.float().sum(dim=0, keepdim=True), min=1.0)
-        )
+        if mesh is None:
+            extras["succ_rate"] = (
+                state.success.float().sum(dim=0, keepdim=True)
+                / torch.clamp(reset_buf.float().sum(dim=0, keepdim=True), min=1.0)
+            )
+        else:
+            n = mesh_lib.all_sum(mesh, torch.stack([state.success.float().sum(),
+                                                    reset_buf.float().sum()]))
+            extras["succ_rate"] = (n[0] / torch.clamp(n[1], min=1.0)).reshape(1)
     else:
         epis_max_step = state.epis_max_step
         epis_max_rew = state.epis_max_rew
@@ -145,10 +154,14 @@ def pre_physics(
 
 
 def run_physics(scene: SceneSpec, sim: SceneState, targets,
-                control_freq_inv: int) -> SceneState:
-    """control_freq_inv fused physics steps with held targets."""
+                control_freq_inv: int, mesh=None) -> SceneState:
+    """control_freq_inv fused physics steps with held targets (with a
+    mesh, each the rank's step on its env shard)."""
     for _ in range(control_freq_inv):
-        sim = engine.physics_step(scene, sim, targets)
+        if mesh is None:
+            sim = engine.physics_step(scene, sim, targets)
+        else:
+            sim = mesh_lib.shard_physics_step(mesh, scene, sim, targets)
     return sim
 
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops import rotations as rot
+from ..parallel import mesh as mesh_lib
 from ..sim import contact as contact_lib
 from ..sim import engine, franka, kinematics
 from ..sim.types import (FreeBodySpec, FreeBodyState, SimParams, TreeState,
@@ -51,10 +52,13 @@ class GraspCubeEnv:
     (as tensors on ``device``); step/reset are functions of an explicit
     :class:`EnvState`."""
 
-    def __init__(self, cfg: dict, sim_params: SimParams, device="cuda"):
+    def __init__(self, cfg: dict, sim_params: SimParams, device="cuda", mesh=None):
+        """``mesh`` (``parallel/mesh.py``): the env holds this rank's share
+        of the ``num_envs`` envs."""
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.num_envs = cfg["num_envs"]
+        self.mesh = mesh
+        self.num_envs = len(mesh_lib.env_ids(mesh, cfg["num_envs"]))
         self.max_episode_length = cfg["maxEpisodeLength"]
         self.explore_step = cfg["explore_step"]
         self.control_freq_inv = cfg["controlFrequencyInv"]
@@ -170,10 +174,10 @@ class GraspCubeEnv:
         pos = self._obj_default_pos_t.repeat(E, 1)
         if self.random_reset:
             if draws is None:
-                dxy = (torch.rand((E, 2), generator=rng, device=d) * 2.0
-                       - 1.0) * RESET_RANGE
-                a = (torch.rand((E,), generator=rng, device=d) * 2.0
-                     - 1.0) * math.pi
+                rand = lambda *shape: mesh_lib.shard_draw(
+                    self.mesh, E, lambda n: torch.rand((n, *shape), generator=rng, device=d))
+                dxy = (rand(2) * 2.0 - 1.0) * RESET_RANGE
+                a = (rand() * 2.0 - 1.0) * math.pi
             else:
                 dxy, a = (torch.as_tensor(x, dtype=torch.float32, device=d)
                           for x in draws)
@@ -208,7 +212,7 @@ class GraspCubeEnv:
             state.sim, torch.ones(E, dtype=torch.bool, device=self.device),
             state.rng, draws)
         targets = self._default_dof_t.repeat(E, 1)
-        sim = engine.physics_step(self.scene, sim, targets)
+        sim = base.run_physics(self.scene, sim, targets, 1, self.mesh)
         state = base.init_env_state(sim, E, state.rng)
         obs, _ = self._observations(state)
         return state, self._vision_obs(state, obs)
@@ -303,10 +307,10 @@ class GraspCubeEnv:
         state, final_targets, pre_extras = base.pre_physics(
             state, targets, default_targets, self._reset_sim_fn,
             self.explore_step, self.max_episode_length, train,
-            force_reset=force_reset)
+            force_reset=force_reset, mesh=self.mesh)
 
         sim = base.run_physics(self.scene, state.sim, final_targets,
-                               self.control_freq_inv)
+                               self.control_freq_inv, self.mesh)
         state = state._replace(sim=sim, progress=state.progress + 1)
 
         obs, view = self._observations(state)

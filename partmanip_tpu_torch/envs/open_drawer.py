@@ -43,6 +43,7 @@ import torch
 
 from ..ops import rotations as rot
 from ..ops import sdf as sdf_ops
+from ..parallel import mesh as mesh_lib
 from ..sim import builder, contact as contact_lib
 from ..sim import engine, franka, kinematics
 from ..sim.types import BoxGeoms, GridGeoms, SimParams, TreeState, to_device
@@ -60,10 +61,14 @@ class OpenDrawerEnv:
     (as tensors on ``device``); step/reset are functions of an explicit
     :class:`EnvState` whose ``task_state`` is the per-object success bitmap."""
 
-    def __init__(self, cfg: dict, sim_params: SimParams, device="cuda"):
+    def __init__(self, cfg: dict, sim_params: SimParams, device="cuda", mesh=None):
+        """``mesh`` (``parallel/mesh.py``): the env holds this rank's share
+        of the ``num_envs`` envs, their cabinets as in one process."""
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.num_envs = cfg["num_envs"]
+        self.mesh = mesh
+        self.env_ids = np.asarray(mesh_lib.env_ids(mesh, cfg["num_envs"]))
+        self.num_envs = len(self.env_ids)
         self.max_episode_length = cfg["maxEpisodeLength"]
         self.explore_step = cfg["explore_step"]
         self.control_freq_inv = cfg["controlFrequencyInv"]
@@ -105,7 +110,7 @@ class OpenDrawerEnv:
         self.num_objects = len(objs)
 
         E = self.num_envs
-        obj_ids = np.arange(E) % self.num_objects
+        obj_ids = self.env_ids % self.num_objects
         self.obj_lstid = obj_ids
 
         obj_spec = builder.stack_trees([o.built.spec for o in objs])
@@ -258,10 +263,10 @@ class OpenDrawerEnv:
         if not self.random_reset:
             return pos, quat0.clone()
         if draws is None:
-            dxyz = (torch.rand((E, 3), generator=rng, device=d) * 2.0
-                    - 1.0) * RESET_T_RANGE
-            a = (torch.rand((E,), generator=rng, device=d) * 2.0
-                 - 1.0) * RESET_R_RANGE
+            rand = lambda *shape: mesh_lib.shard_draw(
+                self.mesh, E, lambda n: torch.rand((n, *shape), generator=rng, device=d))
+            dxyz = (rand(3) * 2.0 - 1.0) * RESET_T_RANGE
+            a = (rand() * 2.0 - 1.0) * RESET_R_RANGE
         else:
             dxyz, a = (torch.as_tensor(x, dtype=torch.float32, device=d)
                        for x in draws)
@@ -296,7 +301,7 @@ class OpenDrawerEnv:
             state.sim, torch.ones(E, dtype=torch.bool, device=self.device),
             state.rng, draws)
         targets = self._default_dof_t.repeat(E, 1)
-        sim = engine.physics_step(self.scene, sim, targets)
+        sim = base.run_physics(self.scene, sim, targets, 1, self.mesh)
         st = base.init_env_state(sim, E, state.rng)
         st = st._replace(task_state=state.task_state)
         obs, _, _ = self._observations(st)
@@ -406,9 +411,9 @@ class OpenDrawerEnv:
         success = grasp_success & ((q - lower) >= SUC_PROP * upper)
         # per-object bitmap: an object is solved once any env holding it
         # succeeds
-        hits = torch.zeros(self.num_objects, dtype=torch.int32,
-                           device=self.device).index_add_(
-            0, self._obj_ids_t, success.to(torch.int32))
+        hits = mesh_lib.all_sum(self.mesh, torch.zeros(
+            self.num_objects, dtype=torch.int32, device=self.device).index_add_(
+            0, self._obj_ids_t, success.to(torch.int32)))
         succ_objid = state.task_state | (hits > 0)
         rew = rew + 2.0 * success
 
@@ -444,10 +449,10 @@ class OpenDrawerEnv:
         state, final_targets, pre_extras = base.pre_physics(
             state, targets, default_targets, self._reset_sim_fn,
             self.explore_step, self.max_episode_length, train,
-            force_reset=force_reset)
+            force_reset=force_reset, mesh=self.mesh)
 
         sim = base.run_physics(self.scene, state.sim, final_targets,
-                               self.control_freq_inv)
+                               self.control_freq_inv, self.mesh)
         state = state._replace(sim=sim, progress=state.progress + 1,
                                task_state=task_state)
 

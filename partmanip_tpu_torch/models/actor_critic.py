@@ -19,6 +19,7 @@ import math
 import torch
 import torch.nn as nn
 
+from ..parallel import mesh as mesh_lib
 from .networks import load_resnet34_pretrained, make_network
 
 
@@ -83,11 +84,16 @@ class ActorCritic(nn.Module):
               - torch.log(std) - 0.5 * math.log(2 * math.pi))
         return lp.sum(dim=-1)
 
-    def _noise(self, mean, generator, noise):
+    def _noise(self, mean, generator, noise, mesh=None):
+        """Standard normal noise shaped like ``mean``; with a ``mesh``
+        (``parallel/mesh.py``) drawn at every rank's rows and this rank's
+        kept, so each env gets the noise it gets in one process."""
         if noise is not None:
             return noise
-        return torch.randn(mean.shape, generator=generator, device=mean.device,
-                           dtype=mean.dtype)
+        return mesh_lib.shard_draw(
+            mesh, mean.shape[0],
+            lambda n: torch.randn((n,) + tuple(mean.shape[1:]), generator=generator,
+                                  device=mean.device, dtype=mean.dtype))
 
     def act(self, obs):
         """Deterministic activated action (eval path)."""
@@ -104,12 +110,12 @@ class ActorCritic(nn.Module):
     def cri(self, obs):
         return self.critic(obs)
 
-    def random_act_cri(self, obs, generator=None, noise=None):
+    def random_act_cri(self, obs, generator=None, noise=None, mesh=None):
         """Sample actions; returns (activated action, log_prob, value, mu,
         log_std_row)."""
         mean = self.actor(obs)
         std = self.std()
-        raw = mean + std * self._noise(mean, generator, noise)
+        raw = mean + std * self._noise(mean, generator, noise, mesh)
         logp = self._log_prob(mean, std, raw)
         value = self.critic(obs)
         sigma_row = self.log_std.expand(mean.shape)

@@ -1,9 +1,10 @@
 """Wrapper of the fused physics inner-step CUDA kernels: variant B1a (robot
 + ground + one free box, grasp_cube), variant B1b (robot + ground + one
 articulated object with box geoms, open_drawer), variant B1c (B1b plus
-baked mesh-SDF geoms on the object, open_drawer with mesh handles) and
+baked mesh-SDF geoms on the object, open_drawer with mesh handles),
 variant B1d (the robot and the ground alone, the controller-calibration
-scene of ``tune_pid_torch.py``).
+scene of ``tune_pid_torch.py``) and variant B1e (B1b or B1c with B1a's
+free box beside the object: grasp_cube's cube in open_drawer's scene).
 
 Counterpart of ``partmanip_tpu/sim/fused.py`` (``fused_physics_step`` around
 the Pallas kernel ``_inner_step_tiled``, whose ``has_body`` / ``has_obj`` /
@@ -12,8 +13,9 @@ here; the TPU build's separate grid narrowphase ``_grid_narrowphase`` runs
 inside B1c).  The kernel sources are ``csrc/fused_inner_step.cu`` (B1a; B1d
 is the same file compiled with ``FIS_BODY=0``) and
 ``csrc/fused_inner_step_obj.cu`` (B1b; B1c is the same file compiled with
-``FIS_K > 0``), sharing ``csrc/fused_common.cuh``, ``fused_geom.cuh``,
-``fused_warp.cuh`` and ``fused_bias.cuh``; each is compiled with ``nvcc``
+``FIS_K > 0``, B1e with ``FIS_BODY=1``, with or without grids), sharing
+``csrc/fused_common.cuh``, ``fused_geom.cuh``, ``fused_warp.cuh`` and
+``fused_bias.cuh``; each is compiled with ``nvcc``
 for ``sm_90a`` at first use into a shared library with a plain C interface,
 keyed on every compile-time size, and loaded with ``ctypes``
 (``utils/cuda_lib.py``, shared by every kernel of the port).  Nothing here
@@ -85,16 +87,17 @@ from .types import FreeBodyState, HostCache, TreeState
 
 KERNEL_SOURCE = os.path.join(cuda_lib.CSRC, "fused_inner_step.cu")          # B1a
 KERNEL_SOURCE_OBJ = os.path.join(cuda_lib.CSRC, "fused_inner_step_obj.cu")  # B1b
-# B1c is B1b's source compiled with FIS_K > 0, B1d B1a's with FIS_BODY=0
+# B1c is B1b's source compiled with FIS_K > 0, B1d B1a's with FIS_BODY=0,
+# B1e B1b's (or B1c's) with FIS_BODY=1
 KERNEL_SOURCES = {"b1a": KERNEL_SOURCE, "b1b": KERNEL_SOURCE_OBJ, "b1c": KERNEL_SOURCE_OBJ,
-                  "b1d": KERNEL_SOURCE}
+                  "b1d": KERNEL_SOURCE, "b1e": KERNEL_SOURCE_OBJ}
 DIM_NAMES = ("L", "D", "S", "Lo", "Do", "G", "K", "X", "Y", "Z")
 DIM_MACROS = ("FIS_L", "FIS_D", "FIS_S", "FIS_LO", "FIS_DO", "FIS_G", "FIS_K",
               "FIS_GX", "FIS_GY", "FIS_GZ")
 
 # Number of kernel launches made by this module since import / the last
 # reset, per variant.
-launch_counts = cuda_lib.launch_counter("b1a", "b1b", "b1c", "b1d")
+launch_counts = cuda_lib.launch_counter("b1a", "b1b", "b1c", "b1d", "b1e")
 
 # B1b / B1c give each env a warp: WARPS envs a block, the robot's Spec once
 # per block and each env's records and working set (struct Work) in shared
@@ -113,7 +116,8 @@ def library(variant: str, dims, bias: bool = False) -> cuda_lib.Library:
     """``variant``'s kernel library for these array sizes (every
     compile-time size is a macro and is in the library's name), built with
     the tree bias when ``bias`` (``FIS_BIAS=1``, ``_bias`` in the name).
-    B1d is B1a's source with ``FIS_BODY=0`` (``_robot`` in the name); the
+    B1d is B1a's source with ``FIS_BODY=0`` (``_robot`` in the name), B1e
+    B1b's with ``FIS_BODY=1`` (``_body``; with grids, B1c's dims); the
     other builds pass neither macro."""
     dims = tuple(int(d) for d in dims)
     tag = "_".join(f"{n}{d}" for n, d in zip(DIM_NAMES, dims))
@@ -121,6 +125,9 @@ def library(variant: str, dims, bias: bool = False) -> cuda_lib.Library:
     if variant == "b1d":
         defines.append(("FIS_BODY", 0))
         tag += "_robot"
+    if variant == "b1e":
+        defines.append(("FIS_BODY", 1))
+        tag += "_body"
     if bias:
         defines.append(("FIS_BIAS", 1))
         tag += "_bias"
@@ -131,7 +138,7 @@ def library(variant: str, dims, bias: bool = False) -> cuda_lib.Library:
            "fis_launch_config": ((i32,), i32), "fis_occupancy": ((ptr,), i32)}
     if variant in ("b1a", "b1d"):
         sig["fis_launch"] = ((ptr, ptr, ptr, ptr, i32, i32, ptr), i32)
-    elif variant == "b1b":
+    elif len(dims) == 6:                       # B1b, B1e without grids
         sig["fis_obj_bytes"] = ((), i32)
         sig["fis_launch"] = ((ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr), i32)
     else:
@@ -159,23 +166,16 @@ def check_scene(scene: engine.SceneSpec) -> None:
     counterpart of the JAX package's ``fused_supported`` predicate, which
     silently switched paths instead)."""
     engine.check_supported(scene)
-    has_obj = scene.obj_tree is not None
-    if has_obj and scene.free_body is not None:
-        raise NotImplementedError(
-            "a scene with both a free body and an articulated object has no "
-            "fused kernel yet (B1a takes the free body, B1b the object; "
-            "ROADMAP Queue B: B1 body+obj)")
     if scene.robot.parent.shape[0] != 1:
         raise NotImplementedError(
             "the fused kernel needs one robot topology shared by all envs")
-    if has_obj:
+    if scene.obj_tree is not None:
         if scene.obj_boxes.link_idx.shape[-1] > 32:
             raise NotImplementedError(
                 "kernel B1b keeps a sphere's touching boxes in a 32-bit "
                 "mask: at most 32 object boxes")
         if scene.obj_grids is not None:
             _check_grids(scene)
-        return
     if scene.free_body is None:
         return
     for name, leaf in zip(scene.free_body._fields, scene.free_body):
@@ -303,9 +303,10 @@ def pack_spec(scene: engine.SceneSpec, bias: bool = False) -> np.ndarray:
 
 def pack_spec_obj(scene: engine.SceneSpec, bias: bool = False) -> np.ndarray:
     """The robot and the contact constants as kernel B1b's ``Spec`` struct
-    (field order of ``csrc/fused_inner_step_obj.cu``; with ``bias``, the
-    ``FIS_BIAS`` build's)."""
-    p = scene.params
+    (field order of ``csrc/fused_inner_step_obj.cu``); with a free body,
+    B1e's (``FIS_BODY=1``: the cube's fields after the constants); with
+    ``bias``, the ``FIS_BIAS`` build's (the bias fields at the end)."""
+    p, fb = scene.params, scene.free_body
     h, kn = p.h, p.contact_kn
     cd, coef, cdt = _contact_coefs(p)
     words = _robot_words(scene) + [
@@ -316,6 +317,12 @@ def pack_spec_obj(scene: engine.SceneSpec, bias: bool = False) -> np.ndarray:
                  dynamics._FRICTION_VEPS, dynamics._BRAKE_BETA,
                  dynamics._SAT_VEPS),
     ]
+    if fb is not None:
+        m_cube = float(_f32(fb.mass)[0])
+        words += [_f32(fb.mass[:1]), _f32(fb.inertia[0]), _f32(fb.half_extents[0]),
+                  _f32(fb.gravity_scale[:1]), _f32(fb.friction[:1]),
+                  _scalars(cd(m_cube), cd(m_cube / 4.0), coef(m_cube),
+                           contact.FREE_BODY_HOLD_VEL)]
     if bias:
         words += _bias_words(scene)
     return np.ascontiguousarray(np.concatenate(words))
@@ -406,8 +413,11 @@ def _packed_spec(scene: engine.SceneSpec) -> np.ndarray:
 
 
 def variant(scene: engine.SceneSpec) -> str:
-    """The kernel that runs this scene: B1c with mesh-SDF geoms, B1b with an
-    articulated object, B1a with a free body, B1d with neither."""
+    """The kernel that runs this scene: B1e with an articulated object and
+    a free body, B1c with mesh-SDF geoms, B1b with an articulated object,
+    B1a with a free body, B1d with neither."""
+    if scene.obj_tree is not None and scene.free_body is not None:
+        return "b1e"
     if scene.obj_grids is not None:
         return "b1c"
     if scene.obj_tree is not None:
@@ -417,15 +427,15 @@ def variant(scene: engine.SceneSpec) -> str:
 
 def _dims(scene: engine.SceneSpec):
     """The kernel's compile-time sizes: (L, D, S) for B1a and B1d, (L, D, S,
-    Lo, Do, G) for B1b, and for B1c also K and the grid stack's (X, Y, Z)."""
+    Lo, Do, G) for B1b, and for B1c also K and the grid stack's (X, Y, Z);
+    B1e's are B1b's or, with grids, B1c's."""
     dims = (scene.robot.num_links, scene.robot.num_dofs,
             scene.spheres.link_idx.shape[0])
-    kind = variant(scene)
-    if kind in ("b1a", "b1d"):
+    if scene.obj_tree is None:
         return dims
     dims += (scene.obj_tree.num_links, scene.obj_tree.num_dofs,
              scene.obj_boxes.link_idx.shape[-1])
-    if kind == "b1b":
+    if scene.obj_grids is None:
         return dims
     return dims + (scene.obj_grids.link_idx.shape[-1],
                    *scene.grid_stack.sdf.shape[1:])
@@ -449,10 +459,18 @@ def state_rows_obj(D: int, S: int, Do: int) -> int:
     return D + D + 3 + 4 + Do + Do + 3 + 4 + 3 * S + D
 
 
+def state_rows_obj_body(D: int, S: int, Do: int) -> int:
+    """Rows of B1e's env-minor state buffer: B1b's, with B1a's body pose and
+    velocities after the object's rows (before the anchor points)."""
+    return state_rows_obj(D, S, Do) + 3 + 4 + 3 + 3
+
+
 def _rows(variant: str, dims) -> int:
     L, D, S = dims[:3]
     if variant == "b1a":
         return state_rows(D, S)
+    if variant == "b1e":
+        return state_rows_obj_body(D, S, dims[4])
     return state_rows_robot(D, S) if variant == "b1d" else state_rows_obj(D, S, dims[4])
 
 
@@ -462,14 +480,18 @@ def _bias_scratch(L: int, D: int) -> int:
     return L * 12 + D * 6
 
 
-def struct_words(dims, body: bool = True, bias: bool = False) -> dict:
+def struct_words(dims, body: bool = None, bias: bool = False) -> dict:
     """4-byte words of the kernel's structs at these sizes: for B1a (dims
     (L, D, S)) ``Spec`` and the per-env working set ``Work`` of
     ``csrc/fused_inner_step.cu`` (B1d: ``body`` False, the box's fields
     and rows left out), for B1b / B1c ``Spec``, ``ObjSpec``, ``GridSpec``
-    and ``Work`` of ``csrc/fused_inner_step_obj.cu``; with ``bias`` the
-    ``FIS_BIAS`` build's.  The scratch area is the largest of the phases
-    that reuse it."""
+    and ``Work`` of ``csrc/fused_inner_step_obj.cu`` (B1e: ``body`` True,
+    the cube's Spec fields and state rows added); with ``bias`` the
+    ``FIS_BIAS`` build's.  ``body`` None: the family's default build (B1a,
+    B1b / B1c).  The scratch area is the largest of the phases that reuse
+    it."""
+    if body is None:
+        body = len(dims) == 3
     if len(dims) == 3:
         L, D, S = dims
         mass = L * 12 + L * D * 6 + (_bias_scratch(L, D) if bias else 0)
@@ -487,24 +509,25 @@ def struct_words(dims, body: bool = True, bias: bool = False) -> dict:
     scratch = max(7 * (L + Lo), 2 * D * D, L * 12 + L * D * 6 + extra(L, D),
                   Lo * 12 + Lo * Do * 6 + extra(Lo, Do),
                   S * D * 3 + max(S * G + S * KG, S * D * 3))
-    work = (2 * D + 2 * Do + 14 + D                       # state rows, targets
+    work = (2 * D + 2 * Do + 14 + (13 if body else 0) + D  # state rows, targets
             + 7 * L + 8 * D + 2 * tri + D                 # robot poses, axes, M, Ac, tau
             + 7 * Lo + 8 * Do + 2 * trio + Do             # the object's
             + 8 * G + 8 * KG                              # geom poses, active lists
             + 16 * S + scratch                            # sphere records, scratch
             + (D + Do if bias else 0))                    # the biases
-    return {"spec": 26 * L + L * D + 11 * D + 7 * S + 16 + (2 if bias else 0),
+    return {"spec": 26 * L + L * D + 11 * D + 7 * S + 16 + (19 if body else 0)
+                    + (2 if bias else 0),
             "obj": 26 * Lo + Lo * Do + 11 * Do + 13 * G + (1 if bias else 0),
             "grid": 11 * K, "work": work}
 
 
-def launch_config(E: int, dims, body: bool = True, bias: bool = False) -> dict:
+def launch_config(E: int, dims, body: bool = None, bias: bool = False) -> dict:
     """The kernel's launch for E envs at these sizes.  B1a / B1d (dims (L,
     D, S); B1d without the ``body``): two envs a warp, B1A_WARPS warps a
     block, and the block's dynamic shared memory: the Spec once, then a
-    Work per env.  B1b / B1c: a warp per env, WARPS envs a block, the Spec
-    once, then WARPS x (Work, ObjSpec, GridSpec).  ``bias``: the
-    ``FIS_BIAS`` build."""
+    Work per env.  B1b / B1c (B1e with the ``body``): a warp per env, WARPS
+    envs a block, the Spec once, then WARPS x (Work, ObjSpec, GridSpec).
+    ``bias``: the ``FIS_BIAS`` build."""
     w = struct_words(dims, body, bias)
     if len(dims) == 3:
         envs = 2 * B1A_WARPS
@@ -534,17 +557,17 @@ def occupancy(scene: engine.SceneSpec) -> int:
 
 def pack_state(state: engine.SceneState, pos_targets):
     """SceneState + targets → (f32 [rows, E], i32 [S, E]), env-minor; the
-    free body's rows for B1a, the object's for B1b, neither for B1d."""
+    free body's rows for B1a, the object's for B1b, the object's then the
+    body's for B1e, neither for B1d."""
     E = state.robot.qpos.shape[0]
     r = state.robot
+    part = []
     if state.obj is not None:
         o = state.obj
-        part = [o.qpos, o.qvel, o.root_pos, o.root_quat]
-    elif state.body is not None:
+        part += [o.qpos, o.qvel, o.root_pos, o.root_quat]
+    if state.body is not None:
         b = state.body
-        part = [b.pos, b.quat, b.linvel, b.angvel]
-    else:
-        part = []
+        part += [b.pos, b.quat, b.linvel, b.angvel]
     flat = torch.cat([r.qpos, r.qvel, r.root_pos, r.root_quat, *part,
                       state.anchors.point.reshape(E, -1), pos_targets], dim=1)
     return (flat.t().contiguous(),
@@ -558,19 +581,19 @@ def unpack_state(buf, anc_b, like: engine.SceneState) -> engine.SceneState:
     rows = buf.t()
     E = rows.shape[0]
     c = lambda x: x.contiguous()
+    part = []
     if like.obj is not None:
         Do = like.obj.qpos.shape[1]
-        part = [Do, Do, 3, 4]
-    elif like.body is not None:
-        part = [3, 4, 3, 3]
-    else:
-        part = []
+        part += [Do, Do, 3, 4]
+    if like.body is not None:
+        part += [3, 4, 3, 3]
     qpos, qvel, root_pos, root_quat, *p, anc_p, _ = torch.split(
         rows, [D, D, 3, 4, *part, 3 * S, D], dim=1)
     obj, body = like.obj, like.body
     if like.obj is not None:
         obj = TreeState(qpos=c(p[0]), qvel=c(p[1]), root_pos=c(p[2]), root_quat=c(p[3]))
-    elif like.body is not None:
+        p = p[4:]
+    if like.body is not None:
         body = FreeBodyState(pos=c(p[0]), quat=c(p[1]), linvel=c(p[2]), angvel=c(p[3]))
     return engine.SceneState(
         robot=TreeState(qpos=c(qpos), qvel=c(qvel), root_pos=c(root_pos),
@@ -616,8 +639,9 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
         raise RuntimeError(
             f"packing disagrees with the kernel: spec {spec.nbytes} vs "
             f"{lib.fis_spec_bytes()} bytes, rows {rows} vs {lib.fis_state_rows()}")
+    grids = scene.obj_grids is not None
     if lib_def.path not in _CONFIG_CHECKED:
-        cfg = launch_config(E, dims, kind != "b1d", bias)
+        cfg = launch_config(E, dims, scene.free_body is not None, bias)
         if kind in ("b1a", "b1d"):
             got = tuple(lib.fis_launch_config(i) for i in range(4))
             want = (cfg["envs_per_block"], cfg["threads"], cfg["dynamic_smem_bytes"],
@@ -630,7 +654,7 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
         _CONFIG_CHECKED.add(lib_def.path)
     if kind not in ("b1a", "b1d"):
         tables = packed["tables"]
-        if kind == "b1c":
+        if grids:
             if tables[1].shape[1] * 4 != lib.fis_grid_bytes():
                 raise RuntimeError(
                     f"grid packing disagrees with the kernel: {tables[1].shape[1] * 4}"
@@ -647,7 +671,7 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
             on_dev = packed["device"][buf.device] = (
                 [torch.as_tensor(t, device=buf.device) for t in tables],
                 torch.as_tensor(packed["obj_id"], device=buf.device))
-        if kind == "b1c":
+        if grids:
             stack = scene.grid_stack
             if any(x.device != buf.device for x in stack):
                 raise ValueError(f"the grid stack lies on {stack.sdf.device}, "
@@ -664,7 +688,7 @@ def launch_packed(scene: engine.SceneSpec, buf, anc_b, n_steps: int):
         if kind in ("b1a", "b1d"):
             err = lib.fis_launch(buf.data_ptr(), anc_b.data_ptr(), out.data_ptr(),
                                  anc_out.data_ptr(), E, int(n_steps), stream)
-        elif kind == "b1b":
+        elif not grids:
             (table_t,), ids_t = on_dev
             err = lib.fis_launch(buf.data_ptr(), anc_b.data_ptr(), out.data_ptr(),
                                  anc_out.data_ptr(), table_t.data_ptr(),

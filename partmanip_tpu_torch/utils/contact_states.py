@@ -30,6 +30,17 @@ open_drawer (:func:`drawer_contact_states`), by ``env % 4``:
 The fingers close onto the bar (each pad 1 mm into it along the finger
 separation axis, or fully open where the bar is longer than the grip).
 
+open_drawer with grasp_cube's free cube beside the cabinet
+(:func:`body_drawer_contact_states`, the scene of kernel B1e): the states
+above, and the cube placed by the same kinds:
+
+* 0-2 and 4 — resting 2 mm deep on the hand's first sphere (that sphere
+  touches the cube, the pads the handle);
+* 3, every other one of them — on the ground, 0.5 mm into it, its side
+  6 mm into the lowest finger pad, which also presses 2 mm into the ground:
+  the pad chooses the cube (the deeper partner) and its anchor goes into
+  the cube's frame; the others as kinds 0-2 (their pads keep the ground).
+
 Everything is numpy in the ``[E, ...]`` layout both packages share, made from
 a seed, so the same arrays can be handed to either.
 """
@@ -207,6 +218,43 @@ def drawer_contact_states(env, num_envs: int, seed: int):
     return state, targets.astype(np.float32)
 
 
+def body_drawer_contact_states(env, free_body, num_envs: int, seed: int):
+    """Returns ``(state, targets)`` for an ``OpenDrawerEnv`` of the port
+    with ``free_body`` (grasp_cube's cube spec) added to its scene:
+    :func:`drawer_contact_states` plus the cube's ``"body"`` part, placed as
+    the module docstring says, with small random velocities."""
+    state, targets = drawer_contact_states(env, num_envs, seed)
+    rs = np.random.RandomState(seed + 1)
+    E = num_envs
+    dev = env.scene.robot.parent.device
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    half = float(free_body.half_extents.reshape(-1)[0])
+    fk = kinematics.forward_kinematics(
+        env.scene.robot, TreeState(*[t(state["robot"][k]) for k in TreeState._fields]))
+    centers = contact.sphere_positions(env.scene.robot, fk, env.spheres, E).cpu().numpy()
+    radius = env.spheres.radius.cpu().numpy()
+    links = env.spheres.link_idx.cpu().numpy()
+    hand = int(np.argmax(links == env.built.link_index["panda_hand"]))
+    pos = centers[:, hand] + np.array([0.0, 0.0, half + radius[hand] - 0.002])
+    n_kinds = 5 if env.scene.obj_grids is not None else 4
+    kind = np.arange(E) % n_kinds
+    kind[(np.arange(E) // n_kinds) % 2 == 1] = -1     # every other kind 3: cube on the hand
+    pads = np.flatnonzero(env.spheres.sticky.cpu().numpy() > 0)
+    low = pads[np.argmin(centers[:, pads, 2] - radius[pads], axis=1)]      # [E]
+    pad_c = centers[np.arange(E), low]
+    beside = pad_c + (half + radius[low] - 0.006)[:, None] * np.array([1.0, 0.0, 0.0])
+    beside[:, 2] = half - 0.0005
+    pos[kind == 3] = beside[kind == 3]
+    yaw = rs.uniform(-0.3, 0.3, E)
+    state["body"] = {
+        "pos": pos.astype(np.float32),
+        "quat": np.stack([np.zeros(E), np.zeros(E), np.sin(yaw / 2),
+                          np.cos(yaw / 2)], -1).astype(np.float32),
+        "linvel": rs.uniform(-0.02, 0.02, (E, 3)).astype(np.float32),
+        "angvel": rs.uniform(-0.1, 0.1, (E, 3)).astype(np.float32)}
+    return state, targets
+
+
 def sphere_box_depths(env, state):
     """Signed depth of every (env, sphere, object box) pair of a
     ``SceneState`` with an articulated object, [E, S, G] (+inf for inactive
@@ -271,7 +319,8 @@ def touching_counts(env, state) -> dict:
     more boxes at once, touching (sphere, box) pairs; with mesh-SDF geoms
     also spheres touching a grid geom, touching (sphere, grid) pairs, the
     queries that land inside their grid (what the kernel's lookups load) and
-    the anchors on grid geoms (partner ids from 2 + G on)."""
+    the anchors on grid geoms (partner ids from 2 + G on); with a free body
+    the spheres touching it and the anchors on it (partner id 1)."""
     from ..ops import rotations as rot
     E = state.robot.qpos.shape[0]
     fk = kinematics.forward_kinematics(env.scene.robot, state.robot)
@@ -296,8 +345,7 @@ def touching_counts(env, state) -> dict:
                           grid_pairs=int(touch_g.sum()),
                           grid_queries_inside=int(inside.sum()),
                           anchors_on_grids=int((body >= koff).sum()))
-        return counts
-    if env.scene.free_body is None:          # the robot and the ground alone
+    if env.scene.free_body is None:          # no cube
         return counts
     p_local = rot.quat_rotate_inverse(
         state.body.quat[:, None], centers - state.body.pos[:, None])

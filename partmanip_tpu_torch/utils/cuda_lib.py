@@ -55,7 +55,10 @@ class Library:
     restype)}``).  ``name`` is the kernel's key in :func:`launch_counts`.
     :meth:`start` / :meth:`finish` build it (several side by side),
     :meth:`load` builds it when it is missing and loads it once per
-    process."""
+    process.  nvcc writes to a name of this process's and the library is
+    moved into place whole (``os.replace``), so processes that build the
+    same library at once (the ranks of ``parallel/mesh.py``) never load a
+    half-written one."""
 
     def __init__(self, name: str, source: str, so_name: str, signatures: dict,
                  defines: Sequence = (), extra_flags: Sequence[str] = ()):
@@ -64,26 +67,33 @@ class Library:
         self.defines = tuple((m, int(v)) for m, v in defines)
         self.extra_flags = list(extra_flags)
 
-    def command(self):
-        """The nvcc command line; the source comes last."""
+    def command(self, out: str = None):
+        """The nvcc command line writing to ``out`` (default the library's
+        path); the source comes last."""
         return [find_nvcc(), *NVCC_FLAGS, *self.extra_flags,
-                *[f"-D{m}={v}" for m, v in self.defines], "-o", self.path,
+                *[f"-D{m}={v}" for m, v in self.defines], "-o", out or self.path,
                 self.source]
 
     def start(self) -> subprocess.Popen:
         """Start nvcc without waiting; hand the process to :meth:`finish`."""
         os.makedirs(BUILD_DIR, exist_ok=True)
-        return subprocess.Popen(self.command(), stdout=subprocess.PIPE,
+        out = f"{self.path}.{os.getpid()}.tmp"
+        proc = subprocess.Popen(self.command(out), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
+        proc.out_path = out
+        return proc
 
     def finish(self, proc: subprocess.Popen) -> str:
         """Wait for nvcc, keep its report (registers, spills) beside the
-        library, raise if it failed.  Returns the report."""
+        library, move the library into place, raise if nvcc failed.
+        Returns the report."""
         report, _ = proc.communicate()
-        with open(self.path + ".ptxas.txt", "w") as f:
-            f.write(report)
+        _write_whole(self.path + ".ptxas.txt", report)
         if proc.returncode != 0:
+            if os.path.exists(proc.out_path):
+                os.remove(proc.out_path)
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{report}")
+        os.replace(proc.out_path, self.path)
         return report
 
     def load(self) -> ctypes.CDLL:
@@ -99,6 +109,15 @@ class Library:
             fn.restype = restype
         _LIBS[self.path] = lib
         return lib
+
+
+def _write_whole(path: str, text: str) -> None:
+    """Write ``text`` to ``path`` through a name of this process's, so that
+    a reader sees the old file or the new one, never a part."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
 
 
 def ptxas_lines(report: str):

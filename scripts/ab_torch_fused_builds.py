@@ -1,10 +1,10 @@
-"""Kernel B1's default builds (B1a, B1b, B1c) of this checkout against those
-of another checkout, on the card: what nvcc makes of each source (the
+"""Kernel B1's default builds (B1a, B1b, B1c, B1d) of this checkout against
+those of another checkout, on the card: what nvcc makes of each source (the
 ptxas registers and spills, the ``cuobjdump -sass`` digest, each source
 compiled ``--repeat`` times, as ptxas need not give the same code twice),
 and whether the two builds give the same bits on ``chip_smoke.py``'s
-``kernel_check`` states (its rollout and contact cases at 2048 envs, one
-physics step in one launch).
+``kernel_check`` states (its rollout and contact cases at 2048 envs, B1d's
+on the calibration scene, one physics step in one launch).
 
 Run from the root of this checkout, the other one unpacked beside it:
 
@@ -59,15 +59,20 @@ def main(argv=None):
     args = ap.parse_args(argv)
     other_csrc = os.path.join(os.path.abspath(args.other), "partmanip_tpu_torch", "csrc")
     envs = chip_smoke.make_envs()
+    renv, rstate, ctrl = chip_smoke.robot_only_env(chip_smoke.NUM_ENVS)
+    runs = [(path, env, lambda path=path, env=env, cfg=cfg: chip_smoke.check_cases(path, env, cfg))
+            for path, (env, cfg) in zip(chip_smoke.PATHS, envs)]
+    runs.append((chip_smoke.B1D_PATH, renv,
+                 lambda: chip_smoke.robot_only_cases(renv, rstate, ctrl)))
     same_all = True
-    for path, (env, cfg) in zip(chip_smoke.PATHS, envs):
+    for path, env, make_cases in runs:
         scene = env.scene
         mine = fused.scene_library(scene)
         other = type(mine)(mine.name, os.path.join(other_csrc, os.path.basename(mine.source)),
                            os.path.basename(mine.path), mine.signatures, defines=mine.defines)
         mine_libs, mine_info = _builds(mine, "this", args.repeat)
         other_libs, other_info = _builds(other, "other", args.repeat)
-        cases = chip_smoke.check_cases(path, env, cfg)
+        cases = make_cases()
         p = scene.params
         n = p.substeps * p.inner_substeps
         outs = {}

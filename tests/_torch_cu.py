@@ -4,13 +4,17 @@ port's ``csrc/*.cu`` files on a host without nvcc: the ``#if`` / ``#ifdef``
 the given macros are resolved, every other block stays as written.
 
 The physics kernels' variants and builds differ by such blocks
-(``FIS_BODY``: B1a's free box, left out in B1d; ``FIS_BIAS``: the tree
-bias); ``FIS_K`` and the dims stay for the tests to evaluate themselves."""
+(``FIS_BODY``: B1a's free box, left out in B1d, and B1e's, added to
+B1b / B1c; ``FIS_BIAS``: the tree bias); ``FIS_K`` and the dims stay for
+the tests to evaluate themselves."""
 
+import os
 import re
 
-# the default build of csrc/fused_inner_step*.cu: B1a / B1b, no bias
+# the default build of csrc/fused_inner_step.cu: B1a, no bias
 DEFAULT = {"FIS_BODY": 1, "FIS_BIAS": 0}
+# the default builds of the other sources, where they differ: B1b / B1c
+DEFAULTS = {"fused_inner_step_obj.cu": {"FIS_BODY": 0, "FIS_BIAS": 0}}
 _DIRECTIVE = re.compile(r"^\s*#\s*(if|ifdef|ifndef|else|endif)\b(.*)$")
 
 
@@ -62,6 +66,9 @@ def resolve(src: str, macros=None) -> str:
 
 
 def read(path: str, macros=None) -> str:
-    """The source at ``path`` as the build with ``macros`` sees it."""
+    """The source at ``path`` as the build with ``macros`` sees it (default:
+    that source's default build)."""
+    if macros is None:
+        macros = DEFAULTS.get(os.path.basename(path), DEFAULT)
     with open(path) as f:
         return resolve(f.read(), macros)

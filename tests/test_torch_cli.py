@@ -109,18 +109,20 @@ def _check_frames(video_dir, steps):
     (("--test_only", "--save_video", "--save_pose"), None),
     (("--test_only", "--save_pose"), None),
     (("--test_only", "--save_video"), None),
-    (("--test_only", "--parallel.num_devices", "2"), "multi-GPU"),
+    (("--test_only", "--parallel.num_devices", "2"), None),
     (("--test_only", "--sim.coriolis"), None),
 ], ids=["dagger", "vision_obs", "save_pose",
         "save_video", "multi_gpu", "coriolis"])
 def test_unported_parts_raise_naming_the_roadmap(tmp_path, monkeypatch, extra, roadmap_item):
-    """What the port does not run raises, naming its ROADMAP queue: only
-    ``parallel.num_devices > 1`` is left.  The tooling cases are ported: the
-    evaluation capture writes a pose dict per step (``save_pose``), frames
-    made into a video (``save_video``, at a small ``VIDEO_RES`` on the
-    CPU), or both from the rendered path (``vision_obs``); the DAgger
-    evaluation ignores ``--save_video``, as the JAX package's does; and
-    ``--sim.coriolis`` evaluates with the velocity-product term."""
+    """What the port does not run raises, naming its ROADMAP queue: no
+    case is left, each runs.  The tooling cases: the evaluation capture
+    writes a pose dict per step (``save_pose``), frames made into a video
+    (``save_video``, at a small ``VIDEO_RES`` on the CPU), or both from the
+    rendered path (``vision_obs``); the DAgger evaluation ignores
+    ``--save_video``, as the JAX package's does; ``--sim.coriolis``
+    evaluates with the velocity-product term; and ``parallel.num_devices
+    2`` evaluates on two gloo ranks of two envs each (rank 0's metrics come
+    back; tests/test_torch_parallel.py holds them against one process)."""
     from partmanip_tpu_torch.algos import ppo
     monkeypatch.setattr(ppo, "VIDEO_RES", (24, 48))
     args = _main_args(tmp_path) + [a.format(tmp=tmp_path) for a in extra]

@@ -172,16 +172,16 @@ def test_unsupported_scene_raises_with_reason(envs, what):
 def test_no_free_body_raises(envs):
     """Without its free body the scene used to be refused; it is the robot
     and the ground alone now, which kernel B1d runs (B1a's source with
-    ``FIS_BODY=0``).  A free body beside an articulated object still has no
-    kernel (ROADMAP Queue B)."""
+    ``FIS_BODY=0``).  A free body beside an articulated object, once
+    refused too, is kernel B1e's scene (B1b's source with ``FIS_BODY=1``;
+    ``tests/test_torch_fused_b1e_spec.py``)."""
     tenv = envs[2]
     robot_only = tenv.scene._replace(free_body=None)
     fused.check_scene(robot_only)
     assert fused.variant(robot_only) == "b1d"
     assert ("FIS_BODY", 0) in fused.scene_library(robot_only).defines
-    with pytest.raises(NotImplementedError, match="Queue B"):
-        fused.check_scene(tenv.scene._replace(obj_tree=tenv.scene.robot,
-                                              obj_boxes=object()))
+    assert fused.variant(tenv.scene._replace(obj_tree=tenv.scene.robot,
+                                             obj_boxes=object())) == "b1e"
 
 
 def test_n_steps_plumbing_on_the_plain_path(envs):

@@ -100,14 +100,14 @@ def test_new_builds_launch_configuration_matches_the_source(variant, dims, bias)
     """``struct_words`` / ``launch_config`` for each new build equal the
     structs and constants of the source as that build sees it, and the
     block still fits the shared memory the launch bounds assume."""
-    body = variant != "b1d"
+    body = variant == "b1a"          # the object source's FIS_BODY build is B1e
     if variant in ("b1a", "b1d"):
         src = _source(fused.KERNEL_SOURCE, body, bias)
         env = b1a_constants(src, dims)
         words = {"spec": b1a_words(src, "Spec", env), "work": b1a_words(src, "Work", env)}
         smem = 4 * (words["spec"] + env["FIS_ENVS"] * words["work"])
     else:
-        src = _source(fused.KERNEL_SOURCE_OBJ, True, bias)
+        src = _source(fused.KERNEL_SOURCE_OBJ, body, bias)
         env = obj_constants(src, dims)
         words = {"spec": obj_words(src, "Spec", env), "obj": obj_words(src, "ObjSpec", env),
                  "grid": obj_words(src, "GridSpec", env) if len(dims) > 6 else 0,

@@ -162,7 +162,7 @@ def test_cpu_state_never_touches_the_build(denv, monkeypatch):
     out = engine.physics_step(denv.scene, sim, targets)
     via_wrapper = fused.fused_physics_step(denv.scene, sim, targets)
     assert torch.equal(out.obj.qpos, via_wrapper.obj.qpos)
-    assert fused.launch_counts == {"b1a": 0, "b1b": 0, "b1c": 0, "b1d": 0}
+    assert fused.launch_counts == {"b1a": 0, "b1b": 0, "b1c": 0, "b1d": 0, "b1e": 0}
     monkeypatch.undo()
     buf, anc_b = fused.pack_state(sim, targets)
     with pytest.raises(ValueError, match="CUDA"):      # the launch itself refuses
@@ -175,7 +175,7 @@ def _refused(scene, what):
         one = torch.ones(1)
         fb = FreeBodySpec(mass=one, inertia=torch.eye(3)[None], half_extents=torch.ones(1, 3),
                           gravity_scale=one, friction=one)
-        return scene._replace(free_body=fb), fused.check_scene, NotImplementedError
+        return scene._replace(free_body=fb), fused.pack_spec_obj, None     # ported: B1e
     if what == "more_than_32_boxes":
         b = scene.obj_boxes
         wide = type(b)(*[torch.cat([x] * 2, dim=1) for x in b])
@@ -192,8 +192,21 @@ def _refused(scene, what):
 def test_scenes_kernel_b1b_cannot_run_raise(denv, what):
     """Each scene B1b cannot run raises.  An object under gravity was one of
     them; it now runs the bias build (``FIS_BIAS=1``), whose ObjSpec record
-    ends with the object's gravity_scale."""
+    ends with the object's gravity_scale.  A free body beside the object
+    was another; it now runs kernel B1e (``FIS_BODY=1``), whose Spec adds
+    the cube's fields after B1b's."""
     scene, fn, err = _refused(denv.scene, what)
+    if what == "free_body_and_object":
+        fused.check_scene(scene)
+        assert fused.variant(scene) == "b1e" and fused._dims(scene) == fused._dims(denv.scene)
+        offsets, words = _struct_offsets("Spec", _dims(denv), {"FIS_BODY": 1, "FIS_BIAS": 0})
+        spec = fn(scene)
+        assert spec.size == words and offsets["hold_vel"] == (words - 1, 1)
+        plain = fn(denv.scene)
+        np.testing.assert_array_equal(spec[:plain.size], plain)
+        np.testing.assert_array_equal(spec[offsets["cube_inertia"][0]:][:9],
+                                      np.eye(3, dtype=np.float32).ravel())
+        return
     if err is None:
         assert fused.needs_bias(scene) and not fused.needs_bias(denv.scene)
         (table,), obj_id = fn(scene, bias=True)

@@ -53,11 +53,11 @@ COUNTERPARTS = {"partmanip_tpu_torch.ops.raymarch_cuda": "partmanip_tpu.ops.raym
 
 def test_every_subpackage_has_its_counterpart_layout():
     mods = _port_modules()
-    for sub in ("ops", "sim", "envs", "models", "algos", "utils"):
+    for sub in ("ops", "sim", "envs", "models", "algos", "utils", "parallel"):
         assert f"partmanip_tpu_torch.{sub}" in mods
     for name in ("ops.raymarch", "ops.raymarch_cuda", "ops.fps", "ops.tsdf",
                  "envs.vision", "utils.camera", "utils.cuda_lib", "algos.dagger",
-                 "ops.sdf", "algos.storage", "algos.bc"):
+                 "ops.sdf", "algos.storage", "algos.bc", "parallel.mesh"):
         assert f"partmanip_tpu_torch.{name}" in mods, name
     for name in mods:
         if name.endswith((".contact_states", ".convert", ".cuda_lib")):
@@ -80,16 +80,40 @@ print("LIBS", len(cuda_lib._LIBS))
 
 
 def test_every_kernel_registers_its_count_and_builds_nothing_at_import():
-    """B1a, B1b, B1c, B1d, B2 and B3 count their launches through the shared
-    helper; importing the port (without nvcc on the PATH) loads no kernel."""
+    """B1a, B1b, B1c, B1d, B1e, B2 and B3 count their launches through the
+    shared helper; importing the port (without nvcc on the PATH) loads no
+    kernel."""
     env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME="/nonexistent")
     out = subprocess.run([sys.executable, "-c", KERNEL_REGISTRY], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     lines = dict(ln.split(" ", 1) for ln in out.stdout.strip().splitlines())
     assert lines["COUNTS"] == str([("b1a", 0), ("b1b", 0), ("b1c", 0), ("b1d", 0),
-                                   ("b2", 0), ("b3", 0)])
+                                   ("b1e", 0), ("b2", 0), ("b3", 0)])
     assert lines["LIBS"] == "0"
+
+
+PARALLEL_ALONE = r"""
+import sys
+from partmanip_tpu_torch.parallel import mesh
+print("NAMES", sorted(n for n in ("make_mesh", "activate", "active_mesh", "ENV_AXIS",
+                                  "SHARD_DISPATCH_COUNT", "launch") if hasattr(mesh, n)))
+print("BANNED", sorted(m for m in sys.modules
+                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "partmanip_tpu")))
+"""
+
+
+def test_parallel_imports_no_jax_and_keeps_the_jax_names():
+    """``partmanip_tpu_torch.parallel`` imported alone in a fresh
+    interpreter pulls in neither JAX nor the JAX package, and keeps the JAX
+    module's names where they have a counterpart."""
+    out = subprocess.run([sys.executable, "-c", PARALLEL_ALONE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = dict(ln.split(" ", 1) for ln in out.stdout.strip().splitlines())
+    assert lines["BANNED"] == "[]", lines["BANNED"]
+    assert lines["NAMES"] == str(sorted(["make_mesh", "activate", "active_mesh", "ENV_AXIS",
+                                         "SHARD_DISPATCH_COUNT", "launch"]))
 
 
 def test_port_sources_never_name_jax_imports():

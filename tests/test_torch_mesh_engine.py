@@ -227,7 +227,7 @@ def test_cpu_state_never_touches_the_build(envs, monkeypatch):
     out = tengine.physics_step(tenv.scene, sim, targets)
     via_wrapper = fused.fused_physics_step(tenv.scene, sim, targets)
     assert torch.equal(out.obj.qpos, via_wrapper.obj.qpos)
-    assert fused.launch_counts == {"b1a": 0, "b1b": 0, "b1c": 0, "b1d": 0}
+    assert fused.launch_counts == {"b1a": 0, "b1b": 0, "b1c": 0, "b1d": 0, "b1e": 0}
     monkeypatch.undo()
     buf, anc_b = fused.pack_state(sim, targets)
     with pytest.raises(ValueError, match="CUDA"):
