@@ -264,14 +264,14 @@ def phase_device():
 
 
 def phase_build(scenes):
-    """Compile every kernel (the physics kernel of every scene, B2 and B3;
-    one nvcc per library, all started together) and load the libraries.
-    Returns the ptxas lines per kernel."""
-    from partmanip_tpu_torch.ops import fps, raymarch_cuda
+    """Compile every kernel (the physics kernel of every scene, B2, B3 and
+    the point pool; one nvcc per library, all started together) and load
+    the libraries.  Returns the ptxas lines per kernel."""
+    from partmanip_tpu_torch.ops import fps, point_pool, raymarch_cuda
     from partmanip_tpu_torch.sim import fused
     from partmanip_tpu_torch.utils import cuda_lib
     libs = [fused.scene_library(s) for s in scenes]
-    libs += [raymarch_cuda.LIBRARY, fps.LIBRARY]
+    libs += [raymarch_cuda.LIBRARY, fps.LIBRARY, point_pool.LIBRARY]
     t0 = time.time()
     procs = [lib.start() for lib in libs]
     reports = [lib.finish(p) for lib, p in zip(libs, procs)]
@@ -985,6 +985,142 @@ def vision_kernel_check(rig, cases):
     return max(r["max_abs_err"] for r in renders.values()), b3_worst
 
 
+POOL_ROWS = 1600              # the DAgger cell's Adam batch (benchmark drawer_pc_dagger)
+POOL_TOL = 1e-5               # the op's gradients vs its plain version, relative to the
+                              # largest magnitude (f32 sums in another order); TF32 must fail it
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def _pool_inputs(pts, net, zero_rows=()):
+    """(h2, W, b) of PointNet's 512-wide layer on clouds ``pts`` [B, N, 3]:
+    the first two point layers' output and the layer's parameters, with
+    ``zero_rows`` of W zeroed (channels that tie at every point)."""
+    with torch.no_grad():
+        h2 = pts
+        for layer in net.point[:-1]:
+            h2 = net.act(layer(h2))
+        w = net.point[-1].weight.detach().clone()
+        w[list(zero_rows)] = 0.0
+    return h2.contiguous(), w, net.point[-1].bias.detach().clone()
+
+
+def _pool_step(fn, h2, w, b, g):
+    """Forward + backward of ``fn(h2, w, b)`` with gradient ``g``."""
+    h2, w, b = (t.detach().requires_grad_() for t in (h2, w, b))
+    fn(h2, w, b).backward(g)
+    return h2.grad, w.grad, b.grad
+
+
+def pool_kernel_check():
+    """PointNet's fused 512-wide layer + max pool (``ops/point_pool``) on the
+    card at the DAgger cell's size (1600 rows x 1024 points, 3 channels, a
+    seeded student), on random clouds and on a tie case (a quarter of each
+    cloud repeated, 16 clouds of one point, two zero rows of the layer):
+    the forward's max bit-equal to ``amax``, its first index and count
+    equal to the plain version's, its bitmask where the count exceeds 1; the
+    backward bit-equal over two calls and within ``POOL_TOL`` of the plain
+    version (whose TF32 run, the control, must miss it), its per-row counts
+    equal; the largest tensor the forward saves, the peak memory and the
+    time of forward + backward beside Linear + amax."""
+    from partmanip_tpu_torch.models import networks
+    from partmanip_tpu_torch.ops import point_pool
+    torch.manual_seed(0)
+    net = networks.PointNet(3 * K_POINTS, 10, {"name": "PointNet", "activation": "tanh"},
+                            point_num=K_POINTS).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    pts = torch.rand((POOL_ROWS, K_POINTS, 3), generator=gen, device="cuda") * 2 - 1
+    tie = pts.clone()
+    tie[:, -K_POINTS // 4:] = tie[:, :K_POINTS // 4]
+    tie[:16] = 0.0
+    cases = {"random": _pool_inputs(pts, net), "ties": _pool_inputs(tie, net, (5, 300))}
+    fused = point_pool.linear_max_pool
+
+    def dense(h2, w, b):
+        return F.linear(h2, w, b).amax(dim=1)
+
+    results, failures = {}, []
+    for name, (h2, w, b) in cases.items():
+        g = torch.randn((POOL_ROWS, w.shape[0]), generator=gen, device="cuda")
+        with torch.no_grad():
+            h = F.linear(h2, w, b)
+            got, want = point_pool.pool_cuda(h), point_pool.pool_plain(h)
+            pooled_equal = torch.equal(got[0], h.amax(dim=1))
+            del h
+            tied = want[2] > 1
+            forward_equal = (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+                             and torch.equal(got[3][tied], want[3][tied]))
+            first = point_pool.backward_cuda(g, h2, w, *got[1:])
+            second = point_pool.backward_cuda(g, h2, w, *got[1:])
+            plain = point_pool.backward_plain(g, h2, w, *want[1:])
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                control = point_pool.backward_plain(g, h2, w, *want[1:])
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            torch.cuda.synchronize()
+        names = ("dh2", "dw", "db")
+        rerun_equal = all(torch.equal(x, y) for x, y in zip(first, second))
+        errs = {n: _rel_err(x, y) for n, x, y in zip(names, first, plain)}
+        control_errs = {n: _rel_err(x, y) for n, x, y in zip(names, control, plain)}
+        stats_equal = torch.equal(first[3], plain[3])
+        counters = point_pool.PoolCounters()
+        counters.add(first[3], w.shape[0])
+        del first, second, plain, control
+
+        saved = []
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: saved.append(t.numel()) or t, lambda t: t):
+            _pool_step(fused, h2, w, b, g)
+        peak, ms = {}, {}
+        for tag, fn in (("fused", fused), ("linear_amax", dense)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _pool_step(fn, h2, w, b, g)
+            torch.cuda.synchronize()
+            peak[tag] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            ms[tag] = _host_ms(lambda: _pool_step(fn, h2, w, b, g), reps=5)
+        kernels = ("pool_forward_kernel", "pool_weight_grad_kernel", "pool_input_grad_kernel")
+        device_ms = {k: _device_ms(lambda: _pool_step(fused, h2, w, b, g), [k])[0]
+                     for k in kernels}
+        results[name] = {
+            "pooled_bit_equal": pooled_equal, "first_count_mask_equal": forward_equal,
+            "rerun_bit_equal": rerun_equal, "rel_err": errs, "tf32_control_rel_err": control_errs,
+            "stats_equal": stats_equal,
+            **{k: float(v) for k, v in counters.read().items()},
+            "largest_saved": max(saved), "dense_numel": h2.shape[0] * h2.shape[1] * w.shape[0],
+            "peak_gb_above_inputs": peak, "forward_backward_ms": ms,
+            "kernel_device_ms": device_ms}
+        r = results[name]
+        if not (pooled_equal and forward_equal and rerun_equal and stats_equal):
+            failures.append(f"{name}: not equal {r}")
+        if max(errs.values()) > POOL_TOL or max(control_errs.values()) <= POOL_TOL:
+            failures.append(f"{name}: gradients {errs}, TF32 control {control_errs}")
+        if max(saved) >= r["dense_numel"]:
+            failures.append(f"{name}: a [B, N, C] tensor saved for the backward ({max(saved)})")
+    emit("kernel_check", variant="point_pool", rows=POOL_ROWS, points=K_POINTS,
+         tolerance=POOL_TOL, cases=results, launches=point_pool.launch_counts,
+         failures=failures)
+    if failures:
+        raise RuntimeError("kernel_check (point_pool) failed: " + "; ".join(failures))
+
+
+def _pool_launches(runner=None, iterations=0):
+    """Expected launches of the point pool (``ops/point_pool``): a forward
+    and a backward for every chunk pass of ``iterations`` DAgger updates
+    whose student pools through it (PointNet by max alone), none otherwise:
+    acting and evaluation run under ``no_grad``, which bypasses the op."""
+    n = 0
+    actor = runner.student.actor if runner is not None else None
+    if getattr(actor, "pool_counters", None) is not None and not actor.max_mean:
+        n_chunks = runner.minibatch_sizes(runner.last_ts.buffer.stu_obs.shape[0])[2]
+        n = iterations * runner.n_updates * runner.num_mini_batches * n_chunks
+    return {"point_pool.forward": n, "point_pool.backward": n}
+
+
 @torch.no_grad()
 def vision_small_reference(num_envs=4, steps=3, im_scale=8):
     """The vision env on the card (kernels) against the plain pipeline on
@@ -1070,7 +1206,7 @@ def vision_main_path():
     c2f = rig.coarse_to_fine and rig.im_h % 4 == 0 and rig.im_w % 4 == 0
     expected = {"b2": n_obs * (2 if c2f else 1), "b3": n_obs,
                 "b1b": 1 + rounds * (1 + T * env.control_freq_inv), "b1a": 0, "b1c": 0, "b1d": 0,
-                "b1e": 0}
+                "b1e": 0, **_pool_launches()}
     log = runner.last_log
     obs = runner.last_obs
     pts = obs.reshape(env.num_envs, K_POINTS, 3)
@@ -1416,7 +1552,7 @@ def vision_dagger_train(reps=3):
     c2f = rig.coarse_to_fine and rig.im_h % 4 == 0 and rig.im_w % 4 == 0
     expected = {"b2": n_obs * (2 if c2f else 1), "b3": n_obs,
                 "b1b": 1 + K * runner.n_steps * cfi + n_eval * (2 + T * cfi),
-                "b1a": 0, "b1c": 0, "b1d": 0, "b1e": 0}
+                "b1a": 0, "b1c": 0, "b1d": 0, "b1e": 0, **_pool_launches(runner, K)}
     logs = runner.train_logs
     bad = sorted({k for log in logs for k, v in log.items()
                   if k.startswith("Train/") and not np.isfinite(v)})
@@ -1440,7 +1576,7 @@ def vision_dagger_train(reps=3):
     torch.cuda.synchronize()
     resume_launches = cuda_lib.launch_counts()
     resume_expected = {"b2": 2 * (2 if c2f else 1), "b3": 2, "b1b": 1 + runner.n_steps * cfi,
-                       "b1a": 0, "b1c": 0, "b1d": 0, "b1e": 0}
+                       "b1a": 0, "b1c": 0, "b1d": 0, "b1e": 0, **_pool_launches(resumed, 1)}
     resumed_iter, resumed_count = resumed.curr_iter, resumed.last_ts.opt.count
     rts = resumed.resume(resumed.last_ts, path)
     saved, again = runner.last_ts.opt.state_dict(), rts.opt.state_dict()
@@ -1520,7 +1656,8 @@ def dagger_loop():
     launches = cuda_lib.launch_counts()
     env = runner.env
     expected = {"b1b": 1 + LOOP_ITERATIONS * runner.n_steps * env.control_freq_inv,
-                "b1a": 0, "b1c": 0, "b1d": 0, "b1e": 0, "b2": 0, "b3": 0}
+                "b1a": 0, "b1c": 0, "b1d": 0, "b1e": 0, "b2": 0, "b3": 0,
+                **_pool_launches(runner, LOOP_ITERATIONS)}
     loss = [log["Train/dagger_loss"] for log in runner.train_logs]
     want = [record["dagger_loss"][str(i)] for i in range(1, LOOP_ITERATIONS + 1)]
     tail, want_tail = float(np.mean(loss[40:50])), float(np.mean(want[40:50]))
@@ -1874,7 +2011,8 @@ def _dagger_run(task, mode, iterations, extra, launches_total, teacher=DRAWER_CK
     passes = 2 if rig.coarse_to_fine and rig.im_h % 4 == 0 and rig.im_w % 4 == 0 else 1
     samples = mode in ("depth_pc", "depth_sparse")
     expected = {"b1a": 0, "b1b": 0, "b1c": 0, "b1d": 0, "b1e": 0,
-                "b2": n_obs * passes if renders else 0, "b3": n_obs if samples else 0}
+                "b2": n_obs * passes if renders else 0, "b3": n_obs if samples else 0,
+                **_pool_launches(runner, K)}
     expected[physics] = 1 + K * runner.n_steps * cfi + 2 + T * cfi
     obs_formula = f"1 + K·n_steps + (1 + T + 1) = 1 + {K}·{runner.n_steps} + (1 + {T} + 1)"
     formula = {physics: f"1 + K·n_steps·cfi + (2 + T·cfi) = 1 + {K}·{runner.n_steps}·{cfi} "
@@ -1941,7 +2079,7 @@ def tsdf_student():
         demos = {"rows": rows, "scenes": scenes, "seconds": summary["seconds"], "gb_written": gb,
                  "kernel_launches": collect_launches,
                  "expected_launches": {"b1b": 1 + 2 * T, "b1a": 0, "b1c": 0, "b1d": 0, "b1e": 0,
-                                       "b2": 0, "b3": 0},
+                                       "b2": 0, "b3": 0, **_pool_launches()},
                  "layout": {"tsdf": [DEMO_RES] * 3, "action": 10, "tea_obs": 53,
                             "proprio_state": 0, "tsdf_bf16_rounded": True},
                  "constant_predictor_loss": const_loss}
@@ -2332,7 +2470,7 @@ def cube_teacher(launches_total):
         launches_total[k] = launches_total.get(k, 0) + v
     path = os.path.join(runner.save_ckpt_dir, f"model_{K}.ckpt")
     expected = {"b1a": 1 + K * runner.n_steps * runner.env.control_freq_inv,
-                "b1b": 0, "b1c": 0, "b1d": 0, "b1e": 0, "b2": 0, "b3": 0}
+                "b1b": 0, "b1c": 0, "b1d": 0, "b1e": 0, "b2": 0, "b3": 0, **_pool_launches()}
     bad = [k for k, v in runner.last_log.items() if k.startswith("Train/") and not np.isfinite(v)]
     emit("vision_modes_teacher", iterations=runner.curr_iter, num_envs=runner.env.num_envs,
          kernel_launches=launches, expected_launches=expected, wall_seconds=time.time() - t0,
@@ -3280,6 +3418,7 @@ def run_vision_path(phases, ptxas):
     if "kernel_check" in phases:
         worst["b2"], worst["b3"] = vision_kernel_check(rig, cases)
         mode_kernel_check(*mode_case)
+        pool_kernel_check()
     if "small_reference" in phases:
         vision_small_reference()
     if "main_path" in phases:

@@ -22,7 +22,10 @@ Counterpart of ``partmanip_tpu/algos/dagger.py``:
 * ``load_offline`` (an .npy demo tree), ``save`` / ``resume`` (student and
   Adam state, from the port's checkpoints or the JAX package's),
   ``load_pretrain``, the evaluation rounds and the outer loop, with the
-  same metric names (``Train/dagger_loss``, ``Val/succ_rate_max``, …).
+  same metric names (``Train/dagger_loss``, ``Val/succ_rate_max``, …);
+  a PointNet student adds ``Train/pool_tie_share`` and
+  ``Train/pool_critical_points``, what its max pool's backward passes saw
+  (``ops/point_pool.PoolCounters``; the JAX package has no such metric).
 
 The exploration noise and the minibatch shuffles come from the train
 state's ``torch.Generator``; the JAX package's PRNG keys do not carry over,
@@ -291,6 +294,9 @@ class DAgger:
         params = list(self.student.parameters())
         before = [p.detach().clone() for p in params]
         losses = []
+        pool = getattr(self.student.actor, "pool_counters", None)
+        if pool is not None:
+            pool.reset()
         for idx in idx_all:
             self.student.zero_grad(set_to_none=True)
             lsum = 0.0
@@ -317,6 +323,9 @@ class DAgger:
             v2 = v.reshape(self.n_steps, -1)
             metrics[f"Train/{k}_mean"] = v2.mean()
             metrics[f"Train/{k}_max"] = v2.max(dim=0).values.mean()
+        if pool is not None:
+            for k, v in pool.read().items():
+                metrics[f"Train/pool_{k}"] = v
         return ts, env_state, metrics
 
     # ------------------------------------------------------------------

@@ -29,6 +29,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import point_pool
+
+
 def get_activation(name: str) -> Callable:
     return {
         "elu": F.elu, "selu": F.selu, "relu": F.relu, "crelu": F.relu,
@@ -94,7 +97,13 @@ class PointNet(nn.Module):
     128-256-512 (no activation after 512) → max (or max ‖ mean) pool →
     (‖ proprio) → 128 → 32 → head.  Computes in f32, as the JAX package's
     PointNet does (its dense layers take no compute dtype): the ``dtype``
-    key of the config, the MLP's bf16 switch, does not apply."""
+    key of the config, the MLP's bf16 switch, does not apply.
+
+    The max pool and the 512-wide layer before it are one op
+    (``ops/point_pool.linear_max_pool``), whose backward reads only the
+    argmax points; ``pool_counters`` sums what its backward passes saw.
+    With ``max_mean`` the mean's gradient reaches every point, so that pool
+    stays ``Linear`` + ``amax`` ‖ ``mean``."""
 
     def __init__(self, input_dim: int, output_dim: int, net_cfg: dict,
                  proprio_shape: int = 0, point_num: int = 1024):
@@ -114,6 +123,7 @@ class PointNet(nn.Module):
         pooled = 512 * (2 if self.max_mean else 1) + self.proprio_shape
         self.hidden = nn.ModuleList([nn.Linear(pooled, 128), nn.Linear(128, 32)])
         self.head = nn.Linear(32, output_dim)
+        self.pool_counters = point_pool.PoolCounters()
         self.reset_parameters()
 
     def reset_parameters(self):
@@ -133,14 +143,14 @@ class PointNet(nn.Module):
             xyz = pc[..., :3]
             pc = torch.cat([xyz - xyz.mean(dim=1, keepdim=True), pc[..., 3:]], dim=-1)
         h = pc
-        for layer in self.point:
-            h = layer(h)
-            if layer.out_features != 512:
-                h = self.act(h)
+        for layer in self.point[:-1]:
+            h = self.act(layer(h))
+        last = self.point[-1]
         if self.max_mean:
+            h = last(h)
             h = torch.cat([h.amax(dim=1), h.mean(dim=1)], dim=-1)
         else:
-            h = h.amax(dim=1)
+            h = point_pool.linear_max_pool(h, last.weight, last.bias, self.pool_counters)
         if proprio is not None:
             h = torch.cat([h, proprio], dim=-1)
         for layer in self.hidden:

@@ -60,8 +60,8 @@ def test_every_subpackage_has_its_counterpart_layout():
                  "ops.sdf", "algos.storage", "algos.bc", "parallel.mesh"):
         assert f"partmanip_tpu_torch.{name}" in mods, name
     for name in mods:
-        if name.endswith((".contact_states", ".convert", ".cuda_lib")):
-            continue                         # the port's own helpers
+        if name.endswith((".contact_states", ".convert", ".cuda_lib", ".point_pool")):
+            continue                         # the port's own helpers and ops
         name = COUNTERPARTS.get(name, name)
         rel = name.replace("partmanip_tpu_torch", "partmanip_tpu").replace(".", "/")
         assert (os.path.exists(os.path.join(ROOT, rel + ".py"))
@@ -70,7 +70,7 @@ def test_every_subpackage_has_its_counterpart_layout():
 
 KERNEL_REGISTRY = r"""
 import train_torch, chip_smoke, collect_demos_torch
-from partmanip_tpu_torch.ops import fps, raymarch, raymarch_cuda, tsdf
+from partmanip_tpu_torch.ops import fps, point_pool, raymarch, raymarch_cuda, tsdf
 from partmanip_tpu_torch.envs import vision
 from partmanip_tpu_torch.sim import fused
 from partmanip_tpu_torch.utils import cuda_lib
@@ -80,16 +80,17 @@ print("LIBS", len(cuda_lib._LIBS))
 
 
 def test_every_kernel_registers_its_count_and_builds_nothing_at_import():
-    """B1a, B1b, B1c, B1d, B1e, B2 and B3 count their launches through the
-    shared helper; importing the port (without nvcc on the PATH) loads no
-    kernel."""
+    """B1a, B1b, B1c, B1d, B1e, B2, B3 and the point pool count their
+    launches through the shared helper; importing the port (without nvcc
+    on the PATH) loads no kernel."""
     env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME="/nonexistent")
     out = subprocess.run([sys.executable, "-c", KERNEL_REGISTRY], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     lines = dict(ln.split(" ", 1) for ln in out.stdout.strip().splitlines())
     assert lines["COUNTS"] == str([("b1a", 0), ("b1b", 0), ("b1c", 0), ("b1d", 0),
-                                   ("b1e", 0), ("b2", 0), ("b3", 0)])
+                                   ("b1e", 0), ("b2", 0), ("b3", 0),
+                                   ("point_pool.backward", 0), ("point_pool.forward", 0)])
     assert lines["LIBS"] == "0"
 
 
